@@ -1,18 +1,24 @@
 """sspv_tpu_torch — the PyTorch/CUDA port of sspv_tpu for NVIDIA Hopper GPUs.
 
-It ports the offline signal path of the JAX package ``sspv_tpu``: the rows
-view of 16 kHz audio -> fused per-frame features (energy, ZCR, spectral
-entropy, MFCC) -> composite VAD -> VAD-gated banded-ACF pitch. The two
-Pallas kernels of that path are hand-written CUDA kernels for ``sm_90a``
-(``csrc/``); the rest is PyTorch. The JAX package stays the reference the
-port is tested against. This package imports neither ``jax`` nor
-``sspv_tpu``.
+It ports the feature -> VAD -> pitch pipeline of the JAX package ``sspv_tpu``
+and its streaming engine: per-frame energy, ZCR, spectral entropy and MFCC
+of 16 kHz audio, the composite VAD, the VAD-gated banded-ACF pitch, on the
+signal-view path (frame = 2 * hop) and on the frames path (any geometry),
+and ``AudioRuntime`` over them. The three Pallas kernels of those paths are
+hand-written CUDA kernels for ``sm_90a`` (``csrc/``); the rest is PyTorch.
+The JAX package stays the reference the port is tested against. This
+package imports neither ``jax`` nor ``sspv_tpu``.
 
-Every entry point takes its device explicitly; nothing picks one for you.
+Every entry point runs on the card (``device="cuda"``) unless the caller
+asks for another device, such as ``device="cpu"``; without a card the
+default raises instead of falling back to the CPU.
 """
 
+from .config import Config
 from .ops.pipeline import FeatureBlock, FeatureConfig, FeaturePipeline
+from .runtime import AudioRuntime
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-__all__ = ["FeatureBlock", "FeatureConfig", "FeaturePipeline"]
+__all__ = ["AudioRuntime", "Config", "FeatureBlock", "FeatureConfig",
+           "FeaturePipeline"]

@@ -21,7 +21,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "check", "library"]
+__all__ = ["BUILD_DIR", "LAUNCHES", "NVCC_FLAGS", "build", "check", "library"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -32,6 +32,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+# Kernel launches per wrapper since the last reset: each wrapper adds one
+# where it launches its kernel and nowhere else, so a caller can show that
+# a run went through the kernels.
+LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -80,6 +85,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, i, p, p, i, p, p, i, i, i, f, p, p, p,
     ]
     lib.sspv_view_pitch.restype = i
+    lib.sspv_frame_features.argtypes = [
+        p, i, i, p, p, p, i, p, i, p, p, i, f, i, p, p, p, p, p,
+    ]
+    lib.sspv_frame_features.restype = i
     lib.sspv_error_string.argtypes = [i]
     lib.sspv_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,24 +1,28 @@
-"""The offline signal path: rows view -> fused features -> composite VAD ->
-VAD-gated pitch, in PyTorch.
+"""The frame -> features -> VAD -> pitch pipeline, in PyTorch.
 
-Counterpart of ``sspv_tpu/ops/pipeline.py`` for its signal-view path. For a
-signal in the 50%-overlap geometry (frame_size == 2*hop) the host forms the
-``(n+1, hop)`` rows view (a free reshape), uploads it to the pipeline's
-device (int16 stays int16 and casts on the device), and then:
+Counterpart of ``sspv_tpu/ops/pipeline.py``. Two routes compute the same
+per-frame features:
 
-- ``fused_view_features`` (kernel K1 on CUDA) computes energy, zcr, entropy
-  and mfcc of every frame in one sweep;
-- ``streaming_vad`` (tensor ops) runs the composite VAD: exact-length for
-  ``n <= SCAN_BLOCK_FRAMES``, else once over the gate vectors padded to a
-  multiple of ``history_len`` under a ``valid`` mask, exactly the branches of
-  the JAX package;
-- ``pitch_track_signal`` (kernel K2 on CUDA) gives the ungated F0 track,
-  gated on the VAD.
+- the **signal view** (frame_size == 2*hop and a strictly positive window,
+  the routing of the JAX package): the host forms the ``(n+1, hop)`` rows
+  view of a signal (a free reshape) and ``fused_view_features`` (kernel K1
+  on CUDA) computes every frame from it without forming the frame matrix;
+- the **frames path** (every other geometry, and every entry point that
+  takes raw frames: ``features``, ``process_block``, ``process_signal``,
+  ``stream``, the packed block programs): ``fused_features`` (kernel K3 on
+  CUDA) on materialized ``(F, frame_size)`` frames.
 
-On a CPU device the kernels' plain PyTorch versions run instead. Other
-geometries (frame_size != 2*hop, hop not a multiple of 4, odd n_fft, a
-separate entropy spectrum, a window with zeros) need the frames path and
-raise ``NotImplementedError`` on every device: it is not ported yet.
+After either, ``streaming_vad`` (tensor ops) runs the composite VAD:
+exact-length up to ``SCAN_BLOCK_FRAMES`` frames, else once over the gate
+vectors padded to a multiple of ``history_len`` under a ``valid`` mask,
+exactly the branches of the JAX package. ``pitch_track_signal`` (kernel K2
+on the rows view, or the Wiener-Khinchin matmuls on frames) gives the F0
+track, gated on the VAD.
+
+On a CPU device the kernels' plain PyTorch versions run instead. The view
+kernels also need hop % 4 == 0, an even n_fft and a shared entropy
+spectrum: a view geometry without them raises ``NotImplementedError`` on
+the view routes (the JAX package serves those with its XLA view path).
 """
 
 from __future__ import annotations
@@ -30,9 +34,12 @@ import torch
 
 from . import bases
 from . import vad as vad_ops
-from .pitch import _lag_band, acf_bases, pitch_track_signal_gated
+from .frame_kernels import fused_features
+from .pitch import _lag_band, acf_bases, pitch_track_gated, pitch_track_signal_gated
+from .preprocessing import frame_signal, stream_frames
 from .view_kernels import fused_view_features
 from .windows import get_window
+from ..utils.framing import frame_i16_to_f32
 
 __all__ = ["FeatureBlock", "FeatureConfig", "FeaturePipeline"]
 
@@ -76,9 +83,58 @@ class FeatureConfig(NamedTuple):
     view_layout: str = "hop_phase"
     view_kernel: bool = True
 
+    @classmethod
+    def from_config(cls, config=None) -> "FeatureConfig":
+        """The pipeline configuration of a ``Config`` class (default: the
+        port's ``sspv_tpu_torch.config.Config``), as
+        ``sspv_tpu/ops/pipeline.py:128-174`` reads it."""
+        from ..config import Config
+
+        c = config or Config
+        return cls(
+            sample_rate=int(c.SAMPLE_RATE),
+            frame_size=int(c.FRAME_SIZE),
+            hop_size=int(c.HOP_SIZE),
+            window_type=str(c.WINDOW_TYPE),
+            n_fft=int(c.MFCC_N_FFT),
+            entropy_n_fft=int(c.SPECTRAL_ENTROPY_N_FFT),
+            num_filters=int(c.MEL_FILTERS),
+            num_ceps=int(c.NUM_MFCC),
+            lifter=int(c.MFCC_LIFTER),
+            energy_threshold=float(c.ENERGY_THRESHOLD),
+            zcr_threshold=float(c.ZCR_THRESHOLD),
+            entropy_voice_max=float(c.SPECTRAL_ENTROPY_VOICE_MAX),
+            use_adaptive_vad=bool(c.USE_ADAPTIVE_VAD),
+            adaptive_alpha=float(c.ADAPTIVE_VAD_ENERGY_K),
+            adaptive_margin=float(
+                getattr(c, "VAD_ADAPTIVE_ENERGY_MARGIN", 1.0) or 1.0
+            ),
+            composite_mode=str(
+                getattr(c, "VAD_COMPOSITE_MODE", "or") or "or"
+            ).lower(),
+            hangover_on=int(c.VAD_HANGOVER_ON),
+            release_off=int(c.VAD_RELEASE_OFF),
+            history_len=int(getattr(c, "VAD_HISTORY_LEN", 256)),
+            use_pallas=bool(getattr(c, "TPU_USE_PALLAS", True)),
+            precision=str(
+                getattr(c, "TPU_MATMUL_PRECISION", "highest") or "highest"
+            ).lower(),
+            dft_layout=str(
+                getattr(c, "TPU_DFT_LAYOUT", "merged") or "merged"
+            ).lower(),
+            vad_trailing_impl=str(
+                getattr(c, "TPU_VAD_TRAILING_IMPL", "blocked") or "blocked"
+            ).lower(),
+            view_layout=str(
+                getattr(c, "TPU_VIEW_LAYOUT", "hop_phase") or "hop_phase"
+            ).lower(),
+            view_kernel=bool(getattr(c, "TPU_VIEW_KERNEL", True)),
+        )
+
 
 class FeatureBlock(NamedTuple):
-    """Per-frame outputs of one processed signal (tensors on the device)."""
+    """Per-frame outputs of one processed block (tensors on the device, or
+    host arrays after :meth:`FeaturePipeline.split_packed_block`)."""
 
     energy: torch.Tensor  # (F,) f32
     zcr: torch.Tensor  # (F,) f32
@@ -89,29 +145,29 @@ class FeatureBlock(NamedTuple):
 
 
 # Keys of constants() / load_constants(): the feature bases, named after the
-# JAX pipeline's attributes without the underscore, and the ACF bases of the
-# default pitch band (time_features._acf_dft_bases_merged).
-FEATURE_CONSTANTS = ("window", "wm", "wnyq", "fb_t", "dct", "lifter")
+# JAX pipeline's attributes without the underscore (``wm``/``wnyq`` exist
+# for an even n_fft, ``wc_ent``/``ws_ent`` for a separate entropy spectrum),
+# and the ACF bases of the default pitch band
+# (time_features._acf_dft_bases_merged).
+FEATURE_CONSTANTS = ("window", "wc", "ws", "wm", "wnyq", "fb_t", "dct",
+                     "lifter", "wc_ent", "ws_ent")
 ACF_CONSTANTS = ("acf_merged", "acf_nyq", "acf_inv_live", "acf_inv_nyq")
 
 
-def _unsupported(cfg: FeatureConfig, window: np.ndarray) -> str | None:
-    """Why the view kernels cannot take this geometry, or None."""
-    if cfg.frame_size != 2 * cfg.hop_size:
-        return f"frame_size {cfg.frame_size} != 2 * hop_size {cfg.hop_size}"
+def _view_unsupported(cfg: FeatureConfig) -> str | None:
+    """Why the view kernels cannot take this view geometry, or None."""
     if cfg.hop_size % 4:
         return f"hop_size {cfg.hop_size} is not a multiple of 4"
     if cfg.n_fft % 2:
         return f"odd n_fft {cfg.n_fft}"
     if cfg.entropy_n_fft != cfg.n_fft:
         return f"entropy_n_fft {cfg.entropy_n_fft} != n_fft {cfg.n_fft}"
-    if not np.all(window > 0):
-        return f"window {cfg.window_type!r} is not strictly positive"
     return None
 
 
 class FeaturePipeline:
-    """Configured frame -> feature -> VAD -> pitch pipeline on one device."""
+    """Configured frame -> feature -> VAD -> pitch pipeline on one device,
+    the card unless the caller asks for another (``device="cpu"``)."""
 
     # Frames up to which the VAD runs at exact length; longer signals run it
     # once over the gate vectors padded to a multiple of history_len.
@@ -119,8 +175,12 @@ class FeaturePipeline:
     # Length buckets (seconds) of the *_auto entry points: inputs zero-pad up
     # to one and the padded frames are masked out of the VAD state.
     SIGNAL_BUCKET_SECONDS = (2, 8, 32, 128, 512, 2048)
+    # Column layout of the packed feature block (frozen; split_packed_block
+    # is the inverse): 0 energy, 1 zcr, 2 entropy, 3 vad, 4 vad_adaptive,
+    # 5: mfcc (num_ceps); the pitch programs append f0 and confidence.
+    PACKED_PREFIX_COLS = 5
 
-    def __init__(self, cfg: FeatureConfig | None = None, *, device):
+    def __init__(self, cfg: FeatureConfig | None = None, *, device="cuda"):
         self.device = torch.device(device)
         self.cfg = cfg or FeatureConfig()
         if self.cfg.num_ceps > self.cfg.num_filters:
@@ -128,26 +188,31 @@ class FeaturePipeline:
             self.cfg = self.cfg._replace(num_ceps=self.cfg.num_filters)
         c = self.cfg
         window = get_window(c.window_type, c.frame_size)
-        why = _unsupported(c, window)
-        if why is not None:
-            raise NotImplementedError(
-                f"{why}: only the signal-view geometry is ported; the frames "
-                "path (sspv_tpu/ops/pallas_kernels.py) is not yet"
-            )
-        wm, wnyq = bases.merged_windowed_dft_bases(
+        # the JAX package's routing: the view path serves frame == 2*hop
+        # with a strictly positive window (sign(x*w) == sign(x)), the
+        # frames path everything else
+        self._view_geometry = (c.frame_size == 2 * c.hop_size
+                               and bool(np.all(window > 0)))
+        consts = {"window": window}
+        consts["wc"], consts["ws"] = bases.windowed_dft_bases(
             c.frame_size, c.n_fft, c.window_type
         )
+        if c.n_fft % 2 == 0:
+            consts["wm"], consts["wnyq"] = bases.merged_windowed_dft_bases(
+                c.frame_size, c.n_fft, c.window_type
+            )
+        if c.entropy_n_fft != c.n_fft:
+            consts["wc_ent"], consts["ws_ent"] = bases.windowed_dft_bases(
+                c.frame_size, c.entropy_n_fft, c.window_type
+            )
+        consts["fb_t"] = bases.mel_filterbank_np(
+            c.num_filters, c.n_fft, c.sample_rate
+        ).T.copy()
+        consts["dct"] = bases.dct_ortho_matrix(c.num_filters, c.num_ceps)
+        consts["lifter"] = bases.lifter_vector(c.num_ceps, c.lifter)
+        self._wm = self._wnyq = self._wc_ent = self._ws_ent = None
         self._acf: dict[int, tuple] = {}
-        self.load_constants({
-            "window": window,
-            "wm": wm,
-            "wnyq": wnyq,
-            "fb_t": bases.mel_filterbank_np(
-                c.num_filters, c.n_fft, c.sample_rate
-            ).T.copy(),
-            "dct": bases.dct_ortho_matrix(c.num_filters, c.num_ceps),
-            "lifter": bases.lifter_vector(c.num_ceps, c.lifter),
-        })
+        self.load_constants(consts)
 
     # -- constants ----------------------------------------------------------
 
@@ -157,23 +222,31 @@ class FeaturePipeline:
     def load_constants(self, consts: dict) -> None:
         """Take bases from a dict of arrays (keys ``FEATURE_CONSTANTS`` and,
         optionally, ``ACF_CONSTANTS``), e.g. the JAX pipeline's ``_window``,
-        ``_wm``, ... and ``_acf_dft_bases_merged``; missing keys keep their
-        value."""
+        ``_wc``, ... and ``_acf_dft_bases_merged``; missing keys and ``None``
+        values keep their value."""
         for k in FEATURE_CONSTANTS:
-            if k in consts:
+            if consts.get(k) is not None:
                 setattr(self, "_" + k, self._tensor(consts[k]))
         if all(k in consts for k in ACF_CONSTANTS):
             acf = tuple(self._tensor(consts[k]) for k in ACF_CONSTANTS)
             self._acf[acf[2].shape[1] - 1] = acf
-        self._view_consts = dict(
-            w2=self._window * self._window, wm=self._wm, wnyq=self._wnyq,
-            fb_t=self._fb_t, dct=self._dct, lifter=self._lifter,
+        self._frame_consts = dict(
+            window=self._window, wc=self._wc, ws=self._ws, fb_t=self._fb_t,
+            dct=self._dct, lifter=self._lifter,
+            entropy_bases=(self._wc_ent, self._ws_ent),
         )
+        self._view_consts = None
+        if self._wm is not None:
+            self._view_consts = dict(
+                w2=self._window * self._window, wm=self._wm, wnyq=self._wnyq,
+                fb_t=self._fb_t, dct=self._dct, lifter=self._lifter,
+            )
 
     def constants(self) -> dict:
         """The pipeline's bases as NumPy arrays, with the ACF bases of the
         default 50-400 Hz pitch band."""
-        out = {k: getattr(self, "_" + k).cpu().numpy() for k in FEATURE_CONSTANTS}
+        out = {k: getattr(self, "_" + k).cpu().numpy()
+               for k in FEATURE_CONSTANTS if getattr(self, "_" + k) is not None}
         acf = self._acf_bases(self._lag_max(50.0, 400.0))
         out.update((k, t.cpu().numpy()) for k, t in zip(ACF_CONSTANTS, acf))
         return out
@@ -196,14 +269,40 @@ class FeaturePipeline:
             c.history_len, c.hangover_on, device=self.device
         )
 
+    def initial_packed_state(self) -> np.ndarray:
+        return vad_ops.initial_packed_state(
+            self.cfg.history_len, self.cfg.hangover_on
+        )
+
+    def supports_samples_dispatch(self) -> bool:
+        """Whether the engine may ship raw samples (the view path) instead
+        of frames: the view geometry, and one K1 takes."""
+        return self._view_geometry and _view_unsupported(self.cfg) is None
+
     def host_rows_view(self, sig: np.ndarray) -> np.ndarray | None:
         """``(n+1, hop)`` rows view of a 1-D host signal, a free reshape of
-        its first ``(n+1)*hop`` samples; ``None`` without a full frame."""
+        its first ``(n+1)*hop`` samples, in the view geometry; ``None``
+        otherwise or without a full frame."""
         c = self.cfg
-        if sig.ndim != 1 or len(sig) < c.frame_size:
+        if not self._view_geometry or sig.ndim != 1 or len(sig) < c.frame_size:
             return None
         n = 1 + (len(sig) - c.frame_size) // c.hop_size
         return sig[: (n + 1) * c.hop_size].reshape(n + 1, c.hop_size)
+
+    def stream_frames(self, samples) -> np.ndarray:
+        """Streaming framing on the host: only full frames, no tail padding
+        (engine.py:240-242 semantics). Returns raw float32 frames."""
+        c = self.cfg
+        samples = np.asarray(samples)
+        if samples.dtype == np.int16:
+            return frame_i16_to_f32(samples, c.frame_size, c.hop_size)
+        n = len(samples)
+        if n < c.frame_size:
+            return np.zeros((0, c.frame_size), dtype=np.float32)
+        f = 1 + (n - c.frame_size) // c.hop_size
+        idx = (np.arange(c.frame_size)[None, :]
+               + np.arange(f)[:, None] * c.hop_size)
+        return samples.astype(np.float32)[idx]
 
     @staticmethod
     def _host_signal(signal) -> np.ndarray:
@@ -213,8 +312,16 @@ class FeaturePipeline:
         sig = np.asarray(signal)
         return sig if sig.dtype == np.int16 else sig.astype(np.float32, copy=False)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _upload(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # e.g. a view of a JAX array
+            a = a.copy()
+        return torch.from_numpy(a).to(self.device)
+
+    def _frames_on_device(self, frames) -> torch.Tensor:
+        return self._upload(frames).to(torch.float32)
 
     def _bucket_length(self, n_samples: int) -> int:
         """Padded length of the *_auto entry points: the smallest bucket
@@ -229,9 +336,25 @@ class FeaturePipeline:
 
     # -- device side --------------------------------------------------------
 
+    def _features(self, frames: torch.Tensor) -> dict:
+        """Per-frame features of raw ``(F, frame_size)`` frames (K3 on
+        CUDA, for every F >= 1)."""
+        return fused_features(frames.to(torch.float32), **self._frame_consts)
+
+    def _check_view(self) -> None:
+        why = _view_unsupported(self.cfg)
+        if why is not None:
+            raise NotImplementedError(
+                f"{why}: the view kernels do not take this geometry (the JAX "
+                "package serves it with its XLA view path, not ported)"
+            )
+
     def _features_from_rows(self, rows: torch.Tensor) -> dict:
         """Per-frame features of a ``(F+1, hop)`` rows view (K1 on CUDA)."""
         return fused_view_features(rows, **self._view_consts)
+
+    def _device_stream_frames(self, signal: torch.Tensor) -> torch.Tensor:
+        return stream_frames(signal, self.cfg.frame_size, self.cfg.hop_size)
 
     def _vad_core(self, energy, zcr, entropy, state, valid):
         c = self.cfg
@@ -286,12 +409,16 @@ class FeaturePipeline:
             vad=zi, vad_adaptive=zi,
         )
 
+    def _process_block_impl(self, frames: torch.Tensor, state, valid):
+        return self._vad_stage(self._features(frames), state, valid)
+
     def _process_signal_view_impl(self, signal: torch.Tensor, state, n: int,
                                   true_n: int | None = None):
         """Features + VAD of the first ``n`` frames of ``signal`` (1-D
         samples or the ``(n+1, hop)`` rows view, on the device). ``true_n``
         marks the real frame count of a signal padded to a bucket: frames
         beyond it are masked out of the VAD state."""
+        self._check_view()
         hop = self.cfg.hop_size
         x = signal.to(torch.float32)
         rows = x if x.dim() == 2 else x[: (n + 1) * hop].reshape(n + 1, hop)
@@ -304,18 +431,29 @@ class FeaturePipeline:
         return self._vad_full_length(feats, state, n, true_n)
 
     def _process_signal_impl(self, signal: torch.Tensor, state):
+        """``sspv_tpu/ops/pipeline.py:942-994``: the view path for a rows
+        view or a view-geometry signal, else device framing and the frames
+        path (exact-length VAD up to ``SCAN_BLOCK_FRAMES`` frames, else K3
+        over all frames and one full-length VAD)."""
         c = self.cfg
         if signal.dim() == 2:
-            if signal.shape[1] != c.hop_size:
-                raise ValueError(f"rows view must be (n+1, {c.hop_size}), "
-                                 f"got {tuple(signal.shape)}")
+            if not self._view_geometry or signal.shape[1] != c.hop_size:
+                raise ValueError(f"a rows view must be (n+1, {c.hop_size}) "
+                                 f"in the view geometry, got "
+                                 f"{tuple(signal.shape)}")
             return self._process_signal_view_impl(
                 signal, state, signal.shape[0] - 1
             )
-        if signal.shape[0] < c.frame_size:
+        if self._view_geometry and signal.shape[0] >= c.frame_size:
+            n = 1 + (signal.shape[0] - c.frame_size) // c.hop_size
+            return self._process_signal_view_impl(signal, state, n)
+        frames = self._device_stream_frames(signal)
+        f = frames.shape[0]
+        if f == 0:
             return self._empty_block(), state
-        n = 1 + (signal.shape[0] - c.frame_size) // c.hop_size
-        return self._process_signal_view_impl(signal, state, n)
+        if f <= self.SCAN_BLOCK_FRAMES:
+            return self._process_block_impl(frames, state, None)
+        return self._vad_full_length(self._features(frames), state, f)
 
     def _process_signal_masked_impl(self, padded: torch.Tensor, state,
                                     true_n: int):
@@ -326,13 +464,47 @@ class FeaturePipeline:
             n = 1 + (padded.shape[0] - c.frame_size) // c.hop_size
         return self._process_signal_view_impl(padded, state, n, true_n=true_n)
 
-    # -- public API ---------------------------------------------------------
+    # -- public API: frames ---------------------------------------------------
+
+    def features(self, frames_raw) -> dict:
+        """Per-frame features of raw ``(F, frame_size)`` frames."""
+        return self._features(self._frames_on_device(frames_raw))
+
+    def process_block(self, frames_raw, state, valid=None):
+        """One streaming block of raw frames with carried VAD state.
+        ``valid`` may mark a padded tail (bucketed shapes); None means all
+        frames valid. Returns ``(FeatureBlock, VadState)``."""
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=self.device)
+        return self._process_block_impl(
+            self._frames_on_device(frames_raw), state, valid
+        )
+
+    def process_signal(self, signal, state=None, pad_tail: bool = False):
+        """Offline batch path: frame a whole 1-D signal and process it as
+        one block. ``pad_tail=True`` uses the batch framing contract
+        (zero-padded tail); False matches the streaming engine (drop tail)."""
+        c = self.cfg
+        sig = np.asarray(signal)
+        if pad_tail:
+            frames = frame_signal(self._upload(sig.astype(np.float32)),
+                                  c.frame_size, c.hop_size)
+        else:
+            frames = self.stream_frames(sig)
+        if state is None:
+            state = self.initial_state()
+        if int(frames.shape[0]) == 0:
+            return self._empty_block(), state
+        return self.process_block(frames, state)
+
+    # -- public API: whole signals ------------------------------------------
 
     def process_signal_device(self, signal, state=None):
         """Features + VAD of a whole signal on the device. ``signal`` is a
-        host array (uploaded as its rows view; int16 stays int16 and casts
-        on the device) or a tensor of samples or rows (moved to the
-        pipeline's device). Returns ``(FeatureBlock, VadState)``."""
+        host array (uploaded as its rows view in the view geometry, else
+        1-D; int16 stays int16 and casts on the device) or a tensor of
+        samples or rows (moved to the pipeline's device). Returns
+        ``(FeatureBlock, VadState)``."""
         if state is None:
             state = self.initial_state()
         if isinstance(signal, torch.Tensor):
@@ -348,12 +520,13 @@ class FeaturePipeline:
     def process_signal_auto(self, signal, state=None):
         """Like :meth:`process_signal_device`, for a host signal padded to a
         ``SIGNAL_BUCKET_SECONDS`` bucket with the padded frames masked out
-        of the VAD state; the block is sliced back to the true length."""
+        of the VAD state; the block is sliced back to the true length.
+        Frames geometries run at exact length, as in the JAX package."""
         sig = self._host_signal(signal)
         if state is None:
             state = self.initial_state()
         c = self.cfg
-        if len(sig) < c.frame_size:
+        if not self._view_geometry or len(sig) < c.frame_size:
             return self.process_signal_device(sig, state)
         true_n = 1 + (len(sig) - c.frame_size) // c.hop_size
         sig = np.pad(sig, (0, self._bucket_length(len(sig)) - len(sig)))
@@ -375,13 +548,14 @@ class FeaturePipeline:
                                   min_confidence: float = 0.3):
         """Features + VAD + VAD-gated pitch of a host signal, bucketed like
         :meth:`process_signal_auto`, with the same outputs as it followed by
-        :meth:`pitch_signal_auto`. Returns ``(block, state, f0, conf)`` with
-        ``f0``/``conf`` host arrays of the block's length."""
+        :meth:`pitch_signal_auto` (which frames geometries and sub-frame
+        inputs run). Returns ``(block, state, f0, conf)`` with ``f0``/
+        ``conf`` host arrays of the block's length."""
         sig = self._host_signal(signal)
         if state is None:
             state = self.initial_state()
         c = self.cfg
-        if len(sig) < c.frame_size:
+        if not self._view_geometry or len(sig) < c.frame_size:
             block, new_state = self.process_signal_auto(sig, state)
             f0, conf = self.pitch_signal_auto(
                 sig, block.vad, fmin=fmin, fmax=fmax,
@@ -425,9 +599,12 @@ class FeaturePipeline:
         pvad = np.zeros((n_pad,), np.int32)
         m = min(n, n_pad)
         pvad[:m] = vad[:m]
+        rows = self.host_rows_view(psig)
+        if rows is not None:
+            self._check_view()
         f0, conf = pitch_track_signal_gated(
-            self._upload(self.host_rows_view(psig)), pvad, min_confidence,
-            **self._pitch_kwargs(fmin, fmax),
+            self._upload(psig if rows is None else rows), pvad,
+            min_confidence, **self._pitch_kwargs(fmin, fmax),
         )
         f0 = f0.cpu().numpy()[:n]
         conf = conf.cpu().numpy()[:n]
@@ -435,3 +612,194 @@ class FeaturePipeline:
             f0 = np.pad(f0, (0, n - f0.shape[0]))
             conf = np.pad(conf, (0, n - conf.shape[0]))
         return f0, conf
+
+    # -- streaming ----------------------------------------------------------
+
+    def stream(self, chunks, state=None, buckets: tuple[int, ...] | None = None):
+        """Generator over an iterable of 1-D sample chunks (any dtype):
+        carries the overlap tail and VadState across chunks and yields a
+        ``FeatureBlock`` per chunk that completed >= 1 frame. Frame blocks
+        pad to a small set of bucket shapes (default
+        ``Config.TPU_STREAM_BUCKETS``) under a ``valid`` mask and are sliced
+        back; blocks larger than the top bucket are split."""
+        def dispatch(part, st, valid):
+            block, new_state = self.process_block(part, st, valid=valid)
+            return new_state, (block,)
+
+        for m, (block,) in self._stream_core(chunks, state, buckets, dispatch):
+            yield FeatureBlock(*(x[:m] for x in block))
+
+    def stream_pitch(self, chunks, state=None,
+                     buckets: tuple[int, ...] | None = None,
+                     fmin: float = 50.0, fmax: float = 400.0,
+                     min_confidence: float = 0.3):
+        """:meth:`stream` plus a VAD-gated F0 track: yields
+        ``(FeatureBlock, f0, conf)`` per block, all sliced to the block's
+        true frame count (``f0``/``conf`` host arrays). The blocks equal
+        :meth:`stream`'s (one shared ``_stream_core``)."""
+        def dispatch(part, st, valid):
+            frames = self._frames_on_device(part)
+            block, new_state = self._process_block_impl(frames, st, valid)
+            gate_vad = torch.where(valid, block.vad, torch.zeros_like(block.vad))
+            f0, conf = self._gated_frames_pitch(frames, gate_vad,
+                                                min_confidence, fmin, fmax)
+            return new_state, (block, f0, conf)
+
+        for m, (block, f0, conf) in self._stream_core(
+            chunks, state, buckets, dispatch
+        ):
+            yield (FeatureBlock(*(x[:m] for x in block)),
+                   f0.cpu().numpy()[:m], conf.cpu().numpy()[:m])
+
+    def _stream_core(self, chunks, state, buckets, dispatch):
+        """Carry/framing/bucket-padding loop shared by :meth:`stream` and
+        :meth:`stream_pitch` (``pipeline.py:1387-1423``).
+        ``dispatch(part, state, valid) -> (new_state, outputs)``; yields
+        ``(true_m, outputs)``."""
+        c = self.cfg
+        if buckets is None:
+            from ..config import Config, parse_buckets
+
+            buckets = parse_buckets(
+                getattr(Config, "TPU_STREAM_BUCKETS", (32, 256, 2048))
+            )
+        if state is None:
+            state = self.initial_state()
+        carry = np.zeros((0,), dtype=np.float32)
+        top = buckets[-1]
+        for chunk in chunks:
+            chunk = np.asarray(chunk)
+            carry = np.concatenate([carry, chunk.astype(np.float32)])
+            frames = self.stream_frames(carry)
+            n = frames.shape[0]
+            if n == 0:
+                continue
+            carry = carry[n * c.hop_size :]
+            for lo in range(0, n, top):
+                part = frames[lo : lo + top]
+                m = part.shape[0]
+                bucket = next((b for b in buckets if m <= b), top)
+                if bucket != m:
+                    part = np.pad(part, ((0, bucket - m), (0, 0)))
+                valid = torch.arange(bucket, device=self.device) < m
+                state, outputs = dispatch(part, state, valid)
+                yield m, outputs
+
+    # -- packed programs (the engine's dispatches) --------------------------
+
+    def _pack_block(self, block: FeatureBlock) -> torch.Tensor:
+        """One ``(F, PACKED_PREFIX_COLS + num_ceps)`` f32 matrix, the single
+        packer of every packed program (vad values 0/1 cast exactly)."""
+        return torch.cat([
+            block.energy[:, None], block.zcr[:, None], block.entropy[:, None],
+            block.vad.to(torch.float32)[:, None],
+            block.vad_adaptive.to(torch.float32)[:, None],
+            block.mfcc,
+        ], dim=1)
+
+    def _pack_block_pitch(self, block: FeatureBlock, f0, conf) -> torch.Tensor:
+        return torch.cat([self._pack_block(block), f0[:, None], conf[:, None]],
+                         dim=1)
+
+    def _gated_frames_pitch(self, frames, gate_vad, min_conf: float,
+                            fmin: float = 50.0, fmax: float = 400.0):
+        """The frames-path Wiener-Khinchin pitch track with the confidence
+        gate: the pitch tail of the packed pitch programs (50-400 Hz,
+        ``pipeline.py:568``) and of :meth:`stream_pitch`."""
+        return pitch_track_gated(
+            frames, gate_vad, min_conf, sample_rate=self.cfg.sample_rate,
+            fmin=fmin, fmax=fmax,
+        )
+
+    def _packed_block_core(self, frames_raw, packed_state, n_valid: int):
+        state = vad_ops.unpack_state(self._upload(packed_state),
+                                     self.cfg.history_len)
+        frames = self._frames_on_device(frames_raw)
+        valid = torch.arange(frames.shape[0], device=self.device) < int(n_valid)
+        block, new_state = self._process_block_impl(frames, state, valid)
+        return block, new_state, frames, valid
+
+    def process_block_packed(self, frames_raw, packed_state, n_valid: int):
+        """A streaming block with single-buffer I/O: raw frames and the
+        packed state in, one ``(F, 5 + num_ceps)`` block and the new packed
+        state out (both on the device). Equal to :meth:`process_block` with
+        the first ``n_valid`` frames valid; split with
+        :meth:`split_packed_block`."""
+        block, new_state, _, _ = self._packed_block_core(
+            frames_raw, packed_state, n_valid
+        )
+        return self._pack_block(block), vad_ops.pack_state(new_state)
+
+    def process_block_packed_pitch(self, frames_raw, packed_state,
+                                   n_valid: int, min_confidence: float):
+        """:meth:`process_block_packed` plus the VAD-gated F0 track: one
+        ``(F, 7 + num_ceps)`` block (f0 and confidence appended)."""
+        block, new_state, frames, valid = self._packed_block_core(
+            frames_raw, packed_state, n_valid
+        )
+        gate_vad = torch.where(valid, block.vad, torch.zeros_like(block.vad))
+        f0, conf = self._gated_frames_pitch(frames, gate_vad, min_confidence)
+        return (self._pack_block_pitch(block, f0, conf),
+                vad_ops.pack_state(new_state))
+
+    def _packed_signal_core(self, samples, packed_state, true_len: int):
+        c = self.cfg
+        state = vad_ops.unpack_state(self._upload(packed_state), c.history_len)
+        if isinstance(samples, torch.Tensor):
+            x = samples.to(self.device, torch.int16)
+        else:
+            x = self._upload(np.asarray(samples, dtype=np.int16))
+        x = x.to(torch.float32)
+        n = 1 + (x.shape[0] - c.frame_size) // c.hop_size
+        true_len = int(true_len)
+        true_n = (1 + (true_len - c.frame_size) // c.hop_size
+                  if true_len >= c.frame_size else 0)
+        block, new_state = self._process_signal_view_impl(
+            x, state, n, true_n=true_n
+        )
+        return block, new_state, x, n, true_n
+
+    def process_signal_packed(self, samples, packed_state, true_len: int):
+        """Bucketed raw int16 SAMPLES in (the engine's default dispatch),
+        framed on the device through the view path (K1 on CUDA); frames
+        beyond ``true_len`` samples are masked out of the carried state.
+        Needs :meth:`supports_samples_dispatch`."""
+        block, new_state, *_ = self._packed_signal_core(
+            samples, packed_state, true_len
+        )
+        return self._pack_block(block), vad_ops.pack_state(new_state)
+
+    def process_signal_packed_pitch(self, samples, packed_state,
+                                    true_len: int, min_confidence: float):
+        """:meth:`process_signal_packed` plus the VAD-gated F0 track, on the
+        frame matrix formed on the device from the same samples."""
+        block, new_state, x, n, true_n = self._packed_signal_core(
+            samples, packed_state, true_len
+        )
+        frames = self._device_stream_frames(x)
+        valid = torch.arange(n, device=self.device) < true_n
+        gate_vad = torch.where(valid, block.vad, torch.zeros_like(block.vad))
+        f0, conf = self._gated_frames_pitch(frames, gate_vad, min_confidence)
+        return (self._pack_block_pitch(block, f0, conf),
+                vad_ops.pack_state(new_state))
+
+    @staticmethod
+    def _host_rows(packed, n: int) -> np.ndarray:
+        if isinstance(packed, torch.Tensor):
+            packed = packed.cpu().numpy()
+        return np.asarray(packed)[:n]
+
+    def split_packed_block(self, packed_host, n: int) -> FeatureBlock:
+        """Host-side split of a fetched packed block (first ``n`` rows)."""
+        p = self._host_rows(packed_host, n)
+        return FeatureBlock(
+            energy=p[:, 0], zcr=p[:, 1], entropy=p[:, 2],
+            vad=p[:, 3].astype(np.int32), vad_adaptive=p[:, 4].astype(np.int32),
+            mfcc=p[:, self.PACKED_PREFIX_COLS :],
+        )
+
+    def split_packed_block_pitch(self, packed_host, n: int):
+        """Host-side split of a pitch-enabled packed block: the FeatureBlock
+        plus the two appended columns ``(f0, confidence)``."""
+        p = self._host_rows(packed_host, n)
+        return self.split_packed_block(p[:, :-2], n), p[:, -2], p[:, -1]

@@ -1,15 +1,25 @@
-"""Host-built (NumPy) bases of the Wiener-Khinchin ACF that the pitch path
-uses: the port's copy of ``_acf_dft_bases`` / ``_acf_dft_bases_merged``
-from ``sspv_tpu/ops/time_features.py:70-129``, held bit-identical to them by
-``tests/test_torch_bases.py``."""
+"""The Wiener-Khinchin short-time ACF of the pitch path.
+
+Host-built (NumPy) bases: the port's copy of ``_acf_dft_bases`` /
+``_acf_dft_bases_merged`` from ``sspv_tpu/ops/time_features.py:70-129``,
+held bit-identical to them by ``tests/test_torch_bases.py``; ``acf_bases``
+uploads them once per band and device. ``autocorrelation_via_dft``
+(``time_features.py:133``) is the ACF of raw frames as three matmuls.
+"""
 
 from __future__ import annotations
 
 import functools
 
 import numpy as np
+import torch
 
-__all__ = ["_acf_dft_bases", "_acf_dft_bases_merged"]
+__all__ = [
+    "_acf_dft_bases",
+    "_acf_dft_bases_merged",
+    "acf_bases",
+    "autocorrelation_via_dft",
+]
 
 
 @functools.lru_cache(maxsize=8)
@@ -65,3 +75,36 @@ def _acf_dft_bases_merged(frame_size: int, max_lag: int):
         np.ascontiguousarray(inv[:half]),
         np.ascontiguousarray(inv[half]),
     )
+
+
+@functools.lru_cache(maxsize=32)
+def acf_bases(frame_size: int, lag_max: int, device: torch.device) -> tuple:
+    """``(merged, nyq_b, inv_live, inv_nyq)`` of
+    ``_acf_dft_bases_merged(frame_size, lag_max)`` as float32 tensors on
+    ``device``, uploaded once per band and device."""
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(b)).to(device)
+        for b in _acf_dft_bases_merged(int(frame_size), int(lag_max))
+    )
+
+
+def autocorrelation_via_dft(frames: torch.Tensor, max_lag: int,
+                            bases: tuple | None = None) -> torch.Tensor:
+    """Short-time ACF at lags ``0..max_lag`` of raw ``(F, frame_size)``
+    frames: the power spectrum from the merged real-DFT matmul, then the
+    inverse-cosine matmul back to the lag domain. Returns
+    ``(F, max_lag + 1)`` float32. ``bases`` overrides
+    ``acf_bases(frame_size, max_lag)``."""
+    x = frames.to(torch.float32)
+    if x.dim() != 2 or x.shape[0] == 0 or max_lag < 0:
+        f = x.shape[0] if x.dim() == 2 else 0
+        return x.new_zeros((f, max(0, max_lag + 1)))
+    merged, nyq_b, inv_live, inv_nyq = (
+        bases if bases is not None
+        else acf_bases(x.shape[1], int(max_lag), x.device)
+    )
+    half = merged.shape[1] // 2
+    m = x @ merged
+    nyq = x @ nyq_b
+    power = m[:, :half] * m[:, :half] + m[:, half:] * m[:, half:]
+    return power @ inv_live + (nyq * nyq)[:, None] * inv_nyq[None, :]

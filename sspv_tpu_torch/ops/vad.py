@@ -37,8 +37,11 @@ import torch
 __all__ = [
     "VadState",
     "hangover_smooth",
+    "initial_packed_state",
     "initial_vad_state",
+    "pack_state",
     "streaming_vad",
+    "unpack_state",
     "vad_state_from_numpy",
     "vad_state_to_numpy",
 ]
@@ -96,6 +99,42 @@ def vad_state_to_numpy(state: VadState) -> tuple:
         np.int32(state.count.item()),
         np.int32(state.last_voiced.item()),
     )
+
+
+def pack_state(state: VadState) -> torch.Tensor:
+    """Flatten a ``VadState`` into ONE float32 vector ``(2*history_len + 2,)``
+    (``sspv_tpu/ops/vad.py:150``): the two buffers, then count and
+    last_voiced bit-viewed (never value-cast) as float32, so every int32
+    round-trips exactly; many of them (-4, say) are NaN bit patterns. The
+    layout is byte-identical to the JAX package's, and everything moves as
+    int32 so no float operation ever touches those bits."""
+    scalars = torch.stack([state.count.to(torch.int32).reshape(()),
+                           state.last_voiced.to(torch.int32).reshape(())])
+    return torch.cat([
+        state.energy_buf.to(torch.float32).view(torch.int32),
+        state.zcr_buf.to(torch.float32).view(torch.int32),
+        scalars,
+    ]).view(torch.float32)
+
+
+def unpack_state(packed: torch.Tensor, history_len: int) -> VadState:
+    """Inverse of :func:`pack_state`."""
+    bits = packed.contiguous().view(torch.int32)
+    return VadState(
+        energy_buf=bits[:history_len].view(torch.float32),
+        zcr_buf=bits[history_len : 2 * history_len].view(torch.float32),
+        count=bits[-2],
+        last_voiced=bits[-1],
+    )
+
+
+def initial_packed_state(history_len: int = 256,
+                         hangover_on: int = 3) -> np.ndarray:
+    """Host-side packed initial state (``sspv_tpu/ops/vad.py:185``)."""
+    out = np.zeros((2 * history_len + 2,), dtype=np.float32)
+    scalars = np.array([0, -(int(hangover_on) + 1)], dtype=np.int32)
+    out[-2:] = scalars.view(np.float32)
+    return out
 
 
 def _blocked_trailing_sums(ext: torch.Tensor, f: int, history_len: int):

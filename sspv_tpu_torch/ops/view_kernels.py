@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ._build import LAUNCHES
 from .frequency_features import spectral_tail
 
 __all__ = [
@@ -32,11 +33,6 @@ __all__ = [
     "view_features_plain",
     "view_pitch_plain",
 ]
-
-# Kernel launches per wrapper since the last reset: each wrapper adds one
-# where it launches its kernel and nowhere else, so a caller can show that
-# a run went through the kernels.
-LAUNCHES = {"view_features": 0, "view_pitch": 0}
 
 # Frames per block of the plain versions: the (F, n_fft) intermediates of
 # one block stay bounded (~64 MB) whatever the signal length. Per-frame

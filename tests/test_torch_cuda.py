@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from sspv_tpu_torch.ops import _build
+from sspv_tpu_torch.ops import frame_kernels as fk
 from sspv_tpu_torch.ops import view_kernels as vk
 from sspv_tpu_torch.ops.pipeline import FeatureConfig, FeaturePipeline
 
@@ -48,22 +49,29 @@ def _pitch_kwargs(pipe):
 
 
 UNSUPPORTED = {
-    "frame_not_2hop": dict(frame_size=300, hop_size=160),
     "hop_not_multiple_of_4": dict(frame_size=324, hop_size=162),
     "odd_n_fft": dict(n_fft=511, entropy_n_fft=511),
     "separate_entropy_spectrum": dict(entropy_n_fft=256),
-    "window_with_zeros": dict(window_type="hanning"),
 }
 
 
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_unsupported_geometry_raises(device, name):
-    """Geometries the view kernels do not take need the frames path, which
-    is not ported yet: the pipeline refuses them, on every device."""
+    """View geometries (frame == 2*hop, positive window) that the view
+    kernels do not take: the JAX package serves them with its XLA view
+    path, which is not ported, so the view routes refuse them on every
+    device, and the engine's samples dispatch is off for them. The frames
+    path still serves them."""
+    pipe = FeaturePipeline(FeatureConfig(**UNSUPPORTED[name]),
+                           device=_device(device))
+    sig = np.random.default_rng(0).normal(0, 1000, 4000).astype(np.float32)
     with pytest.raises(NotImplementedError):
-        FeaturePipeline(FeatureConfig(**UNSUPPORTED[name]),
-                        device=_device(device))
+        pipe.process_signal_device(sig)
+    assert not pipe.supports_samples_dispatch()
+    block, _ = pipe.process_signal(sig)
+    assert block.energy.shape == (1 + (4000 - pipe.cfg.frame_size)
+                                  // pipe.cfg.hop_size,)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -75,14 +83,17 @@ def test_wrappers_refuse_devices_without_a_kernel():
         vk.fused_view_features(rows, **pipe._view_consts)
     with pytest.raises(ValueError):
         vk.fused_view_pitch(rows, **_pitch_kwargs(pipe))
+    with pytest.raises(ValueError):
+        fk.fused_features(torch.zeros((5, 320), device="meta"),
+                          **pipe._frame_consts)
 
 
 def test_cpu_tensors_launch_nothing():
     pipe = FeaturePipeline(device="cpu")
     before = dict(vk.LAUNCHES)
-    pipe.process_signal_pitch_auto(
-        np.random.default_rng(0).normal(0, 1000, 16000).astype(np.float32)
-    )
+    sig = np.random.default_rng(0).normal(0, 1000, 16000).astype(np.float32)
+    pipe.process_signal_pitch_auto(sig)
+    pipe.process_signal(sig)
     assert vk.LAUNCHES == before
 
 
@@ -93,9 +104,11 @@ def test_build_recipe():
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
-    for name in ("view_features.cu", "view_pitch.cu"):
+    for name, tpu in (("view_features.cu", "pallas_view.py:169"),
+                      ("view_pitch.cu", "pallas_view.py:476"),
+                      ("frame_features.cu", "pallas_kernels.py:43")):
         src = (REPO / "sspv_tpu_torch" / "csrc" / name).read_text()
-        assert "Replaces: sspv_tpu/ops/pallas_view.py:" in src
+        assert f"Replaces: sspv_tpu/ops/{tpu}" in src
         assert "What bounds it on the H100" in src
         assert 'extern "C" int sspv_' in src
 
@@ -122,6 +135,68 @@ def test_kernels_match_plain_versions(n):
     assert _nmse(conf.cpu(), pconf.cpu()) <= 1e-9
     assert vk.LAUNCHES["view_features"] == before["view_features"] + 1
     assert vk.LAUNCHES["view_pitch"] == before["view_pitch"] + 1
+
+
+def _frame_consts(dev, frame: int, window: str = "hamming",
+                  entropy_n_fft: int = 512, n_fft: int = 512) -> dict:
+    """K3's arguments, from a pipeline of that geometry (26 filters, 13
+    cepstra)."""
+    cfg = FeatureConfig(frame_size=frame, window_type=window, n_fft=n_fft,
+                        entropy_n_fft=entropy_n_fft)
+    return FeaturePipeline(cfg, device=dev)._frame_consts
+
+
+# (frame_size, window, entropy_n_fft, n_fft): the engine's and the ASR front
+# end's framing, a window with zeros, a separate entropy spectrum, a frame
+# longer than K3's shared-memory chunk with a scalar tail (1030 % 4 == 2),
+# two thread-per-bin passes and a tail bin (513 bins), and tail bins only
+# (17 bins).
+K3_CASES = {
+    "hamming_320": (320, "hamming", 512, 512),
+    "hamming_400": (400, "hamming", 512, 512),
+    "hann_400": (400, "hanning", 512, 512),
+    "entropy_1024": (400, "hamming", 1024, 512),
+    "hamming_1030": (1030, "hamming", 512, 512),
+    "n_fft_1024": (400, "hamming", 1024, 1024),
+    "n_fft_32": (64, "hamming", 32, 32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 8, 255, 257])
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_frame_kernel_matches_plain_version(case, n):
+    dev = _device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frame, window, ent, n_fft = K3_CASES[case]
+    consts = _frame_consts(dev, frame, window, ent, n_fft)
+    frames = torch.from_numpy(
+        np.random.default_rng(n).normal(0, 1000, (n, frame)).astype(np.float32)
+    ).to(dev)
+    before = fk.LAUNCHES["frame_features"]
+    got = fk.fused_features(frames, **consts)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["frame_features"] == before + 1
+    want = fk.frame_features_plain(frames, **consts)
+    assert got["mfcc"].shape == (n, 13)
+    assert torch.equal(got["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
+
+
+@pytest.mark.cuda
+def test_frame_kernel_zero_frames_are_finite():
+    """Bucket padding: all-zero frames give energy 0, zcr 0 and finite
+    entropy and mfcc, equal to the plain version's."""
+    dev = _device("cuda")
+    consts = _frame_consts(dev, 320)
+    zeros = torch.zeros((40, 320), device=dev)
+    got = fk.fused_features(zeros, **consts)
+    want = fk.frame_features_plain(zeros, **consts)
+    assert not got["energy"].any() and not got["zcr"].any()
+    for k in got:
+        assert bool(torch.isfinite(got[k]).all()), k
+        assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
 
 
 @pytest.mark.cuda
@@ -154,3 +229,66 @@ def test_pipeline_on_cuda_matches_cpu():
         assert _nmse(getattr(gblock, k).cpu(), getattr(cblock, k)) <= 1e-9, k
     assert torch.equal(gblock.vad.cpu(), cblock.vad)
     assert np.mean(gpu[2] == cpu[2]) >= 0.999
+
+
+class _MemorySource:
+    """In-memory int16 source with the AudioSource contract."""
+
+    def __init__(self, signal):
+        self.sample_rate, self.channels = 16000, 1
+        self._data, self._pos, self.exhausted = signal, 0, False
+
+    def open(self):
+        self._pos, self.exhausted = 0, False
+
+    def read(self, num_frames):
+        chunk = self._data[self._pos : self._pos + num_frames]
+        self._pos += len(chunk)
+        self.exhausted = self._pos >= len(self._data)
+        return chunk
+
+    def close(self):
+        pass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples_dispatch,kernel",
+                         [(1, "view_features"), (0, "frame_features")])
+def test_engine_on_cuda_matches_cpu(monkeypatch, samples_dispatch, kernel):
+    """One engine run per dispatch mode on the card: its kernel launches,
+    and the frames equal a CPU run's (zcr and VAD exactly, the rest NMSE)."""
+    import time
+
+    from sspv_tpu_torch import AudioRuntime, Config
+
+    dev = _device("cuda")
+    monkeypatch.setattr(Config, "PROCESSED_DATA_BUFFER_SIZE", 10_000)
+    monkeypatch.setattr(Config, "TPU_STREAM_SAMPLES_DISPATCH", samples_dispatch)
+    rng = np.random.default_rng(5)
+    t = np.arange(3 * 16000) / 16000
+    sig = np.where(((t * 4).astype(int) % 2) == 1,
+                   6000 * np.sin(2 * np.pi * 130 * t),
+                   rng.normal(0, 300, t.size)).astype(np.int16)
+
+    def run(device):
+        rt = AudioRuntime(audio_source=_MemorySource(sig), device=device)
+        rt.auto_stop_on_eof = True
+        rt.start()
+        t0 = time.monotonic()
+        while rt.is_running and time.monotonic() - t0 < 120:
+            time.sleep(0.005)
+        rt.stop()
+        assert rt.last_error is None and not rt.is_running
+        rows = list(rt.processed_data)
+        return {k: np.array([d[k] for d in rows]) for k in
+                ("energy", "zcr", "spec_entropy", "mfcc", "vad")}
+
+    before = vk.LAUNCHES[kernel]
+    got = run(dev)
+    assert vk.LAUNCHES[kernel] > before
+    want = run("cpu")
+    assert got["energy"].shape == (1 + (sig.size - 320) // 160,)
+    np.testing.assert_array_equal(got["zcr"], want["zcr"])
+    np.testing.assert_array_equal(got["vad"], want["vad"])
+    for k in ("energy", "spec_entropy", "mfcc"):
+        assert _nmse(got[k], want[k]) <= 1e-9, k

@@ -177,5 +177,10 @@ def test_signal_shorter_than_a_frame(pipes):
 
 
 def test_device_is_required():
-    with pytest.raises(TypeError):
-        FeaturePipeline()
+    """The default device is the card: without one, construction raises
+    instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        assert FeaturePipeline().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            FeaturePipeline()
