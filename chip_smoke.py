@@ -35,14 +35,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    run gave it; a third, 30 s run
    with ``TPU_ENGINE_PITCH=1`` must give a median voiced F0 within 5 Hz of
    130 Hz; ``save_data`` must write the 8-key npz schema;
-7. times each kernel against its plain version at its main path's shape,
-   and the end-to-end calls, with CUDA events (median of 10 calls each),
-   and the engine's audio-seconds per second on the host clock;
-8. bounds each kernel by the least work of its function: the operations
-   of the features or ACF computed with real FFTs and a sparse mel
-   filterbank, or the bytes it must move, whichever takes longer; it also
-   prints the bound of the kernels' own design (DFT and ACF as dense fp32
-   GEMMs).
+7. runs ``BatchPipeline.process_long`` and ``process_long_pitch`` on the
+   same hour at 320/160 on a one-card mesh and on a mesh naming the card
+   four times (four shards in turn): the shard route must launch K1 and K2
+   once per shard, give features, VAD, F0 and confidence bit-identical to
+   ``process_signal_device`` and ``pitch_track_signal`` on the card, and
+   each shard's kernel must equal its plain version on its input;
+   then, at 322/161 (hop % 4 != 0, which K1 does not take), holds K2 against
+   its plain version on random rows and runs ``process_signal_pitch_auto``
+   on the clip: K3 for the features and K2 for the pitch, each K2 input held
+   to the plain version and the outputs to the same call on the CPU;
+8. runs the corpus CLI's ``process_corpus`` (batch 8) over 44 WAV files of
+   1.5 s to 600 s cut from the same audio (every length bucket) and one
+   2,100 s file (the oversized branch), once without and once with pitch,
+   and ``python -m sspv_tpu_torch.batch --pitch`` on a few of them: one K3
+   launch per batch, every file equal to ``process_signal_auto`` on the card
+   (zcr and VAD exactly, the rest NMSE <= 1e-9), F0 equal to
+   ``process_signal_pitch_auto`` on >= 99.9 % of frames, the npz schema and
+   dtypes, every kernel equal to its plain version on every input the runs
+   gave it; it prints the corpus audio-s/s (host clock) split into decode,
+   device and write time;
+9. times each kernel against its plain version at its main path's shape,
+   and the end-to-end calls, with CUDA events (median of 10 calls each):
+   the view and frames paths, ``process_long(_pitch)`` per mesh, and
+   ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
+   its K3 launch and per-row VAD loop apart; and the engine's
+   audio-seconds per second on the host clock;
+10. bounds each kernel by the least work of its function: the operations
+    of the features or ACF computed with real FFTs and a sparse mel
+    filterbank, or the bytes it must move, whichever takes longer; it also
+    prints the bound of the kernels' own design (DFT and ACF as dense fp32
+    GEMMs). The mesh wrappers' bounds are K1's and K2's at the same shape.
 
 Any failed check raises. The last lines are the card, one JSON object with
 every kernel's launches, error, times and bound, and the
@@ -51,12 +74,15 @@ every kernel's launches, error, times and bound, and the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -72,8 +98,22 @@ FRAME_KERNEL_SIZES = (1, 7, 8, 255, 257, 100_000)
 FRAME_KERNEL_CASES = ((320, "hamming", 512), (400, "hamming", 512),
                       (400, "hanning", 512), (400, "hamming", 1024))
 ASR_FRAME, HOP = 400, 160  # the offline frames path's 25 ms / 10 ms framing
+GAP_FRAME, GAP_HOP = 322, 161  # a view geometry K1 does not take (hop % 4)
 ENGINE_SECONDS = 600
 PITCH_ENGINE_SECONDS = 30
+LONG_SHARDS = (1, 4)  # process_long's meshes: one card, the card four times
+# The corpus: file lengths in seconds, eight per length bucket of
+# FeaturePipeline.SIGNAL_BUCKET_SECONDS (2, 8, 32, 128, 512 s) and four in
+# the 2048 s bucket, plus one file past the largest bucket.
+CORPUS_SECONDS = (1.5, 1.55, 1.6, 1.7, 1.8, 1.9, 1.95, 2.0,
+                  3, 3.5, 4, 5, 6, 7, 7.5, 8,
+                  10, 13, 16, 19, 22, 25, 28, 31,
+                  40, 52, 64, 76, 88, 100, 112, 124,
+                  150, 200, 250, 300, 350, 400, 450, 500,
+                  530, 560, 590, 600)
+OVERSIZED_SECONDS = 2100
+CORPUS_BATCH = 8
+CLI_FILES = 5
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # its full 700 W): fp32 operations outside the tensor cores, device memory.
 FP32_OPS_PER_S = 67e12
@@ -117,11 +157,12 @@ def pitch_kernel_kwargs(pipe) -> dict:
                 sample_rate=SR)
 
 
-def feature_parity(name: str, x, consts: dict, err: dict) -> tuple:
+def feature_parity(name: str, x, consts: dict, err: dict,
+                   key: str | None = None) -> tuple:
     """One features kernel (``view_features`` on rows, ``frame_features``
     on frames) against its plain version on the same input on the card:
-    ``(zcr equal, NMSE of the rest)``. ``err`` keeps each kernel's largest
-    absolute difference."""
+    ``(zcr equal, NMSE of the rest)``. ``err[key]`` (default: the kernel's
+    name) keeps the largest absolute difference."""
     from sspv_tpu_torch.ops import frame_kernels as fk
     from sspv_tpu_torch.ops import view_kernels as vk
 
@@ -133,9 +174,10 @@ def feature_parity(name: str, x, consts: dict, err: dict) -> tuple:
     zcr_equal = bool(np.array_equal(host(got["zcr"]), host(want["zcr"])))
     e = {k: nmse(host(got[k]), host(want[k]))
          for k in ("energy", "entropy", "mfcc")}
+    key = key or name
     for k in got:
-        err[name] = max(
-            err[name],
+        err[key] = max(
+            err[key],
             float(np.max(np.abs(host(got[k]) - host(want[k])), initial=0)),
         )
     return zcr_equal, e
@@ -144,20 +186,12 @@ def feature_parity(name: str, x, consts: dict, err: dict) -> tuple:
 def compare_kernels(pipe, rows_list, err: dict) -> None:
     """Each view kernel against its plain version on the same rows (tensors
     on the card)."""
-    from sspv_tpu_torch.ops import view_kernels as vk
-
     feat = pipe._view_consts
     pkw = pitch_kernel_kwargs(pipe)
     for rows_t in rows_list:
         n = rows_t.shape[0] - 1
         zcr_equal, e = feature_parity("view_features", rows_t, feat, err)
-        f0_k, conf_k = vk.fused_view_pitch(rows_t, **pkw)
-        f0_p, conf_p = vk.view_pitch_plain(rows_t, **pkw)
-        match = float(np.mean(host(f0_k) == host(f0_p)))
-        conf_e = nmse(host(conf_k), host(conf_p))
-        err["view_pitch"] = max(
-            err["view_pitch"], float(np.max(np.abs(host(conf_k) - host(conf_p))))
-        )
+        match, conf_e = pitch_parity(rows_t, pkw, err)
         print(f"kernel-vs-plain n={n}: zcr_equal={zcr_equal} nmse="
               + json.dumps(e) + f" f0_match={match} conf_nmse={conf_e}")
         require(zcr_equal, f"K1 zcr equal at n={n}")
@@ -166,11 +200,11 @@ def compare_kernels(pipe, rows_list, err: dict) -> None:
         require(conf_e <= NMSE_KERNEL, f"K2 conf nmse {conf_e} at n={n}")
 
 
-def random_rows(device, sizes, seed: int = 0) -> list:
+def random_rows(device, sizes, seed: int = 0, hop: int = 160) -> list:
     import torch
 
     rng = np.random.default_rng(seed)
-    return [torch.from_numpy(rng.normal(0, 1000, (n + 1, 160))
+    return [torch.from_numpy(rng.normal(0, 1000, (n + 1, hop))
                              .astype(np.float32)).to(device) for n in sizes]
 
 
@@ -302,6 +336,69 @@ PIPELINE_WRAPPERS = {"view_features": "fused_view_features",
                      "frame_features": "fused_features"}
 
 
+@contextlib.contextmanager
+def recording(targets):
+    """Record a copy of the input and the constants of every call to a
+    kernel's wrapper: ``targets`` lists the ``(module, name)`` under which
+    callers reach it. Yields the list of calls."""
+    calls, saved = [], []
+    for module, name in targets:
+        wrapper = getattr(module, name)
+
+        def rec(x, __wrapper=wrapper, **consts):
+            calls.append((x.clone(), consts))
+            return __wrapper(x, **consts)
+
+        saved.append((module, name, wrapper))
+        setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        for module, name, wrapper in saved:
+            setattr(module, name, wrapper)
+
+
+def pitch_parity(x, kw: dict, err: dict, key: str = "view_pitch") -> tuple:
+    """K2 against its plain version on the same rows: ``(F0 match share,
+    confidence NMSE)``; ``err[key]`` keeps the largest confidence
+    difference."""
+    from sspv_tpu_torch.ops import view_kernels as vk
+
+    f0_k, conf_k = vk.fused_view_pitch(x, **kw)
+    f0_p, conf_p = vk.view_pitch_plain(x, **kw)
+    err[key] = max(err[key], float(np.max(
+        np.abs(host(conf_k) - host(conf_p)), initial=0)))
+    match = float(np.mean(host(f0_k) == host(f0_p))) if f0_k.numel() else 1.0
+    return match, nmse(host(conf_k), host(conf_p))
+
+
+def calls_parity(kernel: str, calls: list, err: dict, label: str,
+                 key: str | None = None) -> None:
+    """A kernel against its plain version on every recorded input."""
+    key = key or kernel
+    require(len(calls) > 0, f"{label} called the {kernel} wrapper")
+    shapes = sorted({tuple(x.shape) for x, _ in calls})
+    if kernel == "view_pitch":
+        worst_match, worst = 1.0, 0.0
+        for x, kw in calls:
+            match, e = pitch_parity(x, kw, err, key)
+            worst_match, worst = min(worst_match, match), max(worst, e)
+        print(f"{label} K2 vs plain on {len(calls)} inputs (shapes {shapes}):"
+              f" min f0 match={worst_match} max conf nmse={worst}")
+        require(worst_match >= F0_MATCH, f"{label} K2 f0 match {worst_match}")
+        require(worst <= NMSE_KERNEL, f"{label} K2 conf nmse {worst}")
+        return
+    worst, zcr_equal = 0.0, True
+    for x, consts in calls:
+        eq, e = feature_parity(kernel, x, consts, err, key)
+        zcr_equal &= eq
+        worst = max(worst, *e.values())
+    print(f"{label} {kernel} vs plain on {len(calls)} inputs (shapes "
+          f"{shapes}): zcr_equal={zcr_equal} max nmse={worst}")
+    require(zcr_equal, f"{label} {kernel} zcr equals its plain version")
+    require(worst <= NMSE_KERNEL, f"{label} {kernel} nmse {worst}")
+
+
 def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
                pitch: bool = False, record: str | None = None) -> dict:
     """One ``AudioRuntime`` run over an in-memory int16 source, read as fast
@@ -336,27 +433,17 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     Config.TPU_ENGINE_PITCH = pitch
     rt = AudioRuntime(audio_source=MemorySource(sig16), device=device)
     require(rt._samples_dispatch == bool(samples_dispatch), "dispatch mode")
-    calls = []
-    if record is not None:
-        wrapper = getattr(pipeline_mod, PIPELINE_WRAPPERS[record])
-
-        def recording(x, **consts):
-            calls.append((x.clone(), consts))
-            return wrapper(x, **consts)
-
-        setattr(pipeline_mod, PIPELINE_WRAPPERS[record], recording)
-    sync(rt.pipeline.device)
-    reset_launches()
-    t0 = time.perf_counter()
-    try:
+    targets = [] if record is None else [
+        (pipeline_mod, PIPELINE_WRAPPERS[record])]
+    with recording(targets) as calls:
+        sync(rt.pipeline.device)
+        reset_launches()
+        t0 = time.perf_counter()
         rt.auto_stop_on_eof = True
         rt.start()
         while rt.is_running and time.perf_counter() - t0 < 600:
             time.sleep(0.005)
         rt.stop()
-    finally:
-        if record is not None:
-            setattr(pipeline_mod, PIPELINE_WRAPPERS[record], wrapper)
     seconds = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     mode = "samples" if samples_dispatch else "frames"
@@ -368,22 +455,6 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     require(rt.frames_processed == n, f"engine frames {rt.frames_processed}")
     return {"rt": rt, "launches": launches, "seconds": seconds,
             "calls": calls}
-
-
-def engine_kernel_parity(kernel: str, calls: list, err: dict) -> None:
-    """The kernel against its plain version on every input the engine run
-    gave it (bucket-padded blocks: zero rows past the audio)."""
-    shapes = sorted({tuple(x.shape) for x, _ in calls})
-    worst, zcr_equal = 0.0, True
-    for x, consts in calls:
-        eq, e = feature_parity(kernel, x, consts, err)
-        zcr_equal &= eq
-        worst = max(worst, *e.values())
-    print(f"engine {kernel} vs plain on the run's {len(calls)} inputs "
-          f"(shapes {shapes}): zcr_equal={zcr_equal} max nmse={worst}")
-    require(len(calls) > 0, f"engine called the {kernel} wrapper")
-    require(zcr_equal, f"engine {kernel} zcr equals its plain version")
-    require(worst <= NMSE_KERNEL, f"engine {kernel} nmse {worst}")
 
 
 def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
@@ -404,7 +475,7 @@ def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
     for mode, kernel in ((1, "view_features"), (0, "frame_features")):
         run = run_engine(device, sig16, mode, record=kernel)
         require(run["launches"][kernel] > 0, f"engine launched {kernel}")
-        engine_kernel_parity(kernel, run.pop("calls"), err)
+        calls_parity(kernel, run.pop("calls"), err, "engine")
         rt = run["rt"]
         rows = list(rt.processed_data)
         got = {
@@ -520,6 +591,392 @@ def main_path(pipe, device, seconds: int, check_seconds: int,
     require(cblock.vad.shape == (nc,) and cf0.shape == (nc,), "clip shapes")
     require(bool(clip_same), "process_signal_pitch_auto == auto + pitch_auto")
     return {"launches": launches, "rows": rows, "signal": sig}
+
+
+def long_runs(pipe, device, rows, err: dict) -> dict:
+    """``BatchPipeline.process_long`` and ``process_long_pitch`` on the
+    main path's hour, on a mesh of one card and on the card named
+    ``LONG_SHARDS[-1]`` times: launches per shard, bit-identity with the
+    single-device calls, and each shard's kernel against its plain
+    version."""
+    import torch
+
+    from sspv_tpu_torch.ops import LAUNCHES, pitch_track_signal
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.parallel import BatchPipeline, Mesh
+    from sspv_tpu_torch.parallel import mesh as mesh_mod
+
+    sig = rows.reshape(-1)  # (n+1)*hop samples on the card: n frames
+    n = rows.shape[0] - 1
+    ref, ref_state = pipe.process_signal_device(rows)
+    ref_f0, ref_conf = pitch_track_signal(rows, ref.vad, min_confidence=0.3)
+    sync(device)
+    # the mesh wrappers' launches: the K1 and K2 launches of this phase
+    out = {"launches": {"long_kernel_feats": 0, "long_kernel_pitch": 0},
+           "pipes": {}}
+    for d in LONG_SHARDS:
+        bp = BatchPipeline(Mesh([device] * d))
+        require(bp._long_kernel, "the shard route takes 320/160")
+        out["pipes"][d] = bp
+        with recording([(pipeline_mod, "fused_view_features")]) as feat_calls, \
+                recording([(mesh_mod, "fused_view_pitch")]) as pitch_calls:
+            reset_launches()
+            block, state = bp.process_long(sig)
+            sync(device)
+            feats = dict(LAUNCHES)
+            reset_launches()
+            pblock, pstate, f0, conf = bp.process_long_pitch(sig)
+            sync(device)
+            pitch = dict(LAUNCHES)
+        print(f"process_long d={d} launches " + json.dumps(feats)
+              + "; process_long_pitch launches " + json.dumps(pitch))
+        require(feats["view_features"] == d and feats["view_pitch"] == 0
+                and feats["frame_features"] == 0,
+                f"process_long launches K1 once per shard (d={d})")
+        require(pitch["view_features"] == d == pitch["view_pitch"]
+                and pitch["frame_features"] == 0,
+                f"process_long_pitch launches K1 and K2 once per shard (d={d})")
+        out["launches"]["long_kernel_feats"] += (feats["view_features"]
+                                                 + pitch["view_features"])
+        out["launches"]["long_kernel_pitch"] += pitch["view_pitch"]
+        same = {
+            "block": all(torch.equal(a, b) for a, b in zip(block, ref)),
+            "pitch_block": all(torch.equal(a, b) for a, b in zip(pblock, ref)),
+            "state": all(torch.equal(a, b) for a, b in
+                         zip(state[2:] + pstate[2:], ref_state[2:] * 2)),
+            "f0": torch.equal(f0, ref_f0), "conf": torch.equal(conf, ref_conf),
+        }
+        print(f"process_long(_pitch) d={d}, {n} frames, bit-identical to "
+              "process_signal_device / pitch_track_signal: " + json.dumps(same))
+        require(all(same.values()), f"shard route bit-identical (d={d})")
+        calls_parity("view_features", feat_calls, err, f"long d={d}",
+                     "long_kernel_feats")
+        calls_parity("view_pitch", pitch_calls, err, f"long d={d}",
+                     "long_kernel_pitch")
+    return out
+
+
+def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
+    """The view geometry 322/161, which K1 does not take (hop % 4 != 0): the
+    view routes run K3 on the frames formed on the card, and K2 takes the
+    pitch with one-float sample reads. K2 against its plain version on
+    random rows and on every input ``process_signal_pitch_auto`` gave it
+    on a clip, the clip's outputs against the same call on the CPU (the
+    plain versions), and K2's time at one hour's rows."""
+    import torch
+
+    from sspv_tpu_torch import FeatureConfig, FeaturePipeline
+    from sspv_tpu_torch.ops import LAUNCHES
+    from sspv_tpu_torch.ops import pitch as pitch_mod
+    from sspv_tpu_torch.ops import view_kernels as vk
+
+    cfg = FeatureConfig(frame_size=GAP_FRAME, hop_size=GAP_HOP)
+    pipe = FeaturePipeline(cfg, device=device)
+    pkw = pitch_kernel_kwargs(pipe)
+    for rows in random_rows(device, KERNEL_SIZES, seed=5, hop=GAP_HOP):
+        match, e = pitch_parity(rows, pkw, err)
+        n = rows.shape[0] - 1
+        print(f"K2 vs plain at {GAP_FRAME}/{GAP_HOP} n={n}: f0_match={match}"
+              f" conf_nmse={e}")
+        require(match >= F0_MATCH, f"K2 f0 match {match} at hop {GAP_HOP}")
+        require(e <= NMSE_KERNEL, f"K2 conf nmse {e} at hop {GAP_HOP}")
+    clip = sig[: CLIP_SECONDS * SR]
+    with recording([(pitch_mod, "fused_view_pitch")]) as calls:
+        sync(device)
+        reset_launches()
+        block, _, f0, conf = pipe.process_signal_pitch_auto(clip)
+        sync(device)
+        launches = dict(LAUNCHES)
+    print(f"{GAP_FRAME}/{GAP_HOP} process_signal_pitch_auto launches "
+          + json.dumps(launches))
+    require(launches["frame_features"] == 1 and launches["view_pitch"] == 1
+            and launches["view_features"] == 0,
+            f"{GAP_FRAME}/{GAP_HOP}: K3 for the features, K2 for the pitch")
+    calls_parity("view_pitch", calls, err, f"{GAP_FRAME}/{GAP_HOP}")
+    cblock, _, cf0, cconf = FeaturePipeline(
+        cfg, device="cpu").process_signal_pitch_auto(clip)
+    zcr_vad = all(np.array_equal(host(getattr(block, k)), host(getattr(cblock, k)))
+                  for k in ("zcr", "vad", "vad_adaptive"))
+    e = {k: nmse(host(getattr(block, k)), host(getattr(cblock, k)))
+         for k in ("energy", "entropy", "mfcc")}
+    match = float(np.mean(f0 == cf0)) if f0.size else 1.0
+    voiced = f0[f0 > 0]
+    median_f0 = float(np.median(voiced)) if voiced.size else 0.0
+    print(f"{GAP_FRAME}/{GAP_HOP} clip vs CPU: zcr and vad equal {zcr_vad}, "
+          f"nmse " + json.dumps(e) + f", f0 match {match}, conf nmse "
+          f"{nmse(conf, cconf)}, median voiced f0 {median_f0:.3f} Hz")
+    require(zcr_vad, f"{GAP_FRAME}/{GAP_HOP} zcr and VAD equal the CPU run")
+    require(max(e.values()) <= NMSE_KERNEL, f"{GAP_FRAME}/{GAP_HOP} nmse {e}")
+    require(match >= F0_MATCH and nmse(conf, cconf) <= NMSE_KERNEL,
+            f"{GAP_FRAME}/{GAP_HOP} f0 match {match}")
+    require(abs(median_f0 - 130.0) < 5.0, "322/161 median voiced f0 near 130")
+    rows = torch.from_numpy(pipe.host_rows_view(sig)).to(device)
+    samples = {"view_pitch": [], "view_pitch_plain": []}
+    runs = {"view_pitch": lambda: vk.fused_view_pitch(rows, **pkw),
+            "view_pitch_plain": lambda: vk.view_pitch_plain(rows, **pkw)}
+    for name in ("view_pitch_plain", "view_pitch", "view_pitch",
+                 "view_pitch_plain"):
+        samples[name] += time_ms(runs[name])
+    ms = {k: float(np.median(v)) for k, v in samples.items()}
+    print(f"K2 at {GAP_FRAME}/{GAP_HOP}, {rows.shape[0] - 1} frames: median "
+          f"device ms of 10 calls on {card}: " + json.dumps(ms))
+    return {"launches": launches, "ms": ms}
+
+
+def write_wav(path: Path, pcm: np.ndarray) -> str:
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(SR)
+        w.writeframes(pcm.astype("<i2").tobytes())
+    return str(path)
+
+
+def corpus_files(sig: np.ndarray, folder: Path) -> list[str]:
+    """The corpus's WAV files, cut from ``sig`` at spread offsets."""
+    pcm = np.clip(sig, -32768, 32767).astype(np.int16)
+    files = []
+    for k, seconds in enumerate(CORPUS_SECONDS + (OVERSIZED_SECONDS,)):
+        n = int(seconds * SR)
+        off = (k * 97 * SR) % (len(pcm) - n + 1)
+        files.append(write_wav(folder / f"f{k:02d}_{seconds}s.wav",
+                               pcm[off : off + n]))
+    return files
+
+
+def corpus_batches(files_seconds) -> int:
+    """Batches ``process_corpus`` forms at ``CORPUS_BATCH`` files each."""
+    from sspv_tpu_torch import FeaturePipeline
+
+    per_bucket: dict = {}
+    for s in files_seconds:
+        b = next((x for x in FeaturePipeline.SIGNAL_BUCKET_SECONDS
+                  if int(s * SR) <= x * SR), None)
+        if b is not None:
+            per_bucket[b] = per_bucket.get(b, 0) + 1
+    return sum(-(-k // CORPUS_BATCH) for k in per_bucket.values())
+
+
+def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
+    """``process_corpus`` without and with pitch, and the batch CLI, on the
+    corpus, checked against the single-file entry points on the card."""
+    from sspv_tpu_torch import FeatureConfig, FeaturePipeline
+    from sspv_tpu_torch.batch import _decode, process_corpus
+    from sspv_tpu_torch.config import Config
+    from sspv_tpu_torch.ops import LAUNCHES
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.ops import pitch as pitch_mod
+    from sspv_tpu_torch.parallel import mesh as mesh_mod
+
+    n_batches = corpus_batches(CORPUS_SECONDS + (OVERSIZED_SECONDS,))
+    audio_s = float(sum(CORPUS_SECONDS) + OVERSIZED_SECONDS)
+    out = {"launches": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp)
+        files = corpus_files(sig, folder)
+        pipe = FeaturePipeline(FeatureConfig.from_config(Config), device=device)
+        for want_pitch in (False, True):
+            out_dir = folder / f"npz_{int(want_pitch)}"
+            seconds: dict = {}
+            with recording([(pipeline_mod, "fused_features")]) as k3_calls, \
+                    recording([(pipeline_mod, "fused_view_features")]) as k1_calls, \
+                    recording([(mesh_mod, "fused_view_pitch"),
+                               (pitch_mod, "fused_view_pitch")]) as k2_calls:
+                sync(device)
+                reset_launches()
+                t0 = time.perf_counter()
+                summaries = process_corpus(
+                    files, out_dir=str(out_dir), batch_size=CORPUS_BATCH,
+                    want_pitch=want_pitch, device=device, seconds=seconds,
+                )
+                sync(device)
+                wall = time.perf_counter() - t0
+                launches = dict(LAUNCHES)
+            label = "corpus" + (" pitch" if want_pitch else "")
+            out["launches"][label] = launches
+            print(f"{label}: {len(files)} files, {n_batches} batches, "
+                  f"launches " + json.dumps(launches))
+            print(f"{label}: {audio_s / wall:.1f} audio-s/s over {audio_s:.0f}"
+                  f" s of audio in {wall:.3f} s (host clock; decode "
+                  f"{seconds['decode']:.3f} s, device {seconds['device']:.3f}"
+                  f" s, write {seconds['write']:.3f} s) on {card}")
+            require(all("error" not in s for s in summaries), "corpus errors")
+            require(launches["frame_features"] == n_batches,
+                    f"{label}: one K3 launch per batch")
+            require(launches["view_features"] == 1,
+                    f"{label}: the oversized file took the view path")
+            if want_pitch:
+                require(launches["view_pitch"] == n_batches + 1,
+                        f"{label}: one K2 launch per batch and file")
+            calls_parity("frame_features", k3_calls, err, label)
+            calls_parity("view_features", k1_calls, err, label)
+            if want_pitch:
+                calls_parity("view_pitch", k2_calls, err, label)
+            check_corpus(pipe, files, summaries, want_pitch, _decode)
+            out[label] = {"wall": wall, "seconds": seconds,
+                          "summaries": summaries}
+        cli = files[:CLI_FILES]
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "sspv_tpu_torch.batch", *cli, "--pitch",
+             "--out-dir", str(folder / "cli"), "--jsonl",
+             str(folder / "cli.jsonl")],
+            capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
+        )
+        print(f"python -m sspv_tpu_torch.batch --pitch on {len(cli)} files: "
+              f"rc {res.returncode} in {time.perf_counter() - t0:.1f} s; "
+              + (res.stderr.strip().splitlines() or [""])[-1])
+        require(res.returncode == 0, "batch CLI: " + res.stderr[-2000:])
+        lines = [json.loads(x) for x in res.stdout.splitlines() if x.strip()]
+        want = out["corpus pitch"]["summaries"][:CLI_FILES]
+        strip = lambda d: {k: v for k, v in d.items() if k != "npz"}
+        require([strip(x) for x in lines] == [strip(x) for x in want],
+                "batch CLI summaries equal process_corpus's")
+    return out
+
+
+def check_corpus(pipe, files, summaries, want_pitch: bool, decode) -> None:
+    """Every file of a corpus run against the single-file entry points on
+    the card, and its npz schema."""
+    worst = {"energy": 0.0, "entropy": 0.0, "mfcc": 0.0}
+    zcr_vad_equal, f0_match, frames = True, [], 0
+    want_dtypes = dict(NPZ_DTYPES, mfcc="float32")
+    if want_pitch:
+        want_dtypes.update(f0="float32", pitch_confidence="float32")
+    for path, summary in zip(files, summaries):
+        pcm = decode(path)
+        if want_pitch:
+            block, _, f0, _ = pipe.process_signal_pitch_auto(pcm)
+        else:
+            block, _ = pipe.process_signal_auto(pcm)
+        with np.load(summary["npz"]) as z:
+            dtypes = {k: str(z[k].dtype) for k in z.files}
+            require(dtypes == want_dtypes, f"npz schema {dtypes}")
+            got = {"energy": z["energies"], "zcr": z["zcrs"],
+                   "entropy": z["spec_entropy"], "mfcc": z["mfcc"],
+                   "vad": z["vads"], "vad_adaptive": z["vads_adaptive"]}
+            if want_pitch:
+                f0_match.append(np.sum(z["f0"] == f0))
+        n = block.vad.shape[0]
+        frames += n
+        require(summary["frames"] == n == got["vad"].shape[0],
+                f"frames of {path}")
+        zcr_vad_equal &= all(
+            np.array_equal(got[k].astype(np.float32), host(getattr(block, k))
+                           .astype(np.float32))
+            for k in ("zcr", "vad", "vad_adaptive"))
+        for k in worst:
+            worst[k] = max(worst[k], nmse(got[k], host(getattr(block, k))))
+    match = float(sum(f0_match) / frames) if want_pitch else 1.0
+    print(f"corpus vs single-file on the card ({len(files)} files, {frames} "
+          f"frames): zcr and vad equal {zcr_vad_equal}, max nmse "
+          + json.dumps(worst) + (f", f0 match {match}" if want_pitch else ""))
+    require(zcr_vad_equal, "corpus zcr and VAD equal the single-file path")
+    require(max(worst.values()) <= NMSE_KERNEL, f"corpus nmse {worst}")
+    require(match >= F0_MATCH, f"corpus f0 match {match}")
+
+
+def long_timings(long_run, rows, card: str) -> dict:
+    """Median device ms of process_long(_pitch) and of the two mesh
+    wrappers (and their plain versions over the same shards) per mesh."""
+    from sspv_tpu_torch.ops import view_kernels as vk
+
+    sig, n = rows.reshape(-1), rows.shape[0] - 1
+    out = {}
+    for d, bp in long_run["pipes"].items():
+        lag_min, lag_max = 40, 319
+        pk = dict(zip(("merged", "nyq_b", "inv_live", "inv_nyq"),
+                      bp.pipe._acf_bases(lag_max)),
+                  lag_min=lag_min, lag_max=lag_max, sample_rate=SR)
+
+        def plain_feats():
+            return [vk.view_features_plain(t, **bp.pipe._view_consts)
+                    for _, t in bp._shards(rows, n)]
+
+        def plain_pitch():
+            return [vk.view_pitch_plain(t, **pk) for _, t in bp._shards(rows, n)]
+
+        runs = {
+            "long_kernel_feats": lambda: bp._long_kernel_feats(rows, n),
+            "long_kernel_feats_plain": plain_feats,
+            "long_kernel_pitch": lambda: bp._long_kernel_pitch(rows, n, 50.0,
+                                                               400.0),
+            "long_kernel_pitch_plain": plain_pitch,
+            "process_long": lambda: bp.process_long(sig),
+            "process_long_pitch": lambda: bp.process_long_pitch(sig),
+        }
+        samples = {k: [] for k in runs}
+        for a, b in (("long_kernel_feats_plain", "long_kernel_feats"),
+                     ("long_kernel_pitch_plain", "long_kernel_pitch"),
+                     ("process_long", "process_long_pitch")):
+            for name in (a, b, b, a):
+                samples[name] += time_ms(runs[name])
+        out[d] = {k: float(np.median(v)) for k, v in samples.items()}
+        audio_s = n * 160 / SR
+        print(f"mesh of {d} shard(s), {n} frames: median device ms of 10 "
+              f"calls on {card}: " + json.dumps(out[d]))
+        print(f"process_long d={d}: "
+              f"{audio_s / out[d]['process_long'] * 1e3:.1f} audio-s/s, "
+              f"process_long_pitch "
+              f"{audio_s / out[d]['process_long_pitch'] * 1e3:.1f} audio-s/s"
+              f" on {card}")
+    return out
+
+
+def batch_timings(device, sig: np.ndarray, card: str) -> dict:
+    """Median device ms of ``process_batch_masked`` on one batch of the
+    largest bucket (``CORPUS_BATCH`` rows of 2,048 s cut from ``sig``,
+    int16 on the card), and of its parts: the one K3 launch on the batch's
+    frames and the per-row VAD loop."""
+    import torch
+
+    from sspv_tpu_torch import FeaturePipeline
+    from sspv_tpu_torch.parallel import BatchPipeline, Mesh
+
+    bp = BatchPipeline(Mesh([device]))
+    pipe = bp.pipe
+    length = FeaturePipeline.SIGNAL_BUCKET_SECONDS[-1] * SR
+    pcm = np.clip(sig, -32768, 32767).astype(np.int16)
+    reps = -(-length // len(pcm))
+    rows = np.stack([np.roll(np.tile(pcm, reps)[:length], 7919 * r)
+                     for r in range(CORPUS_BATCH)])
+    batch = torch.from_numpy(rows).to(device)
+    lengths = [length - 1000 * r for r in range(CORPUS_BATCH)]
+    c = pipe.cfg
+    x = batch.to(torch.float32)
+    frames = x.unfold(1, c.frame_size, c.hop_size).reshape(-1, c.frame_size)
+    f = frames.shape[0] // CORPUS_BATCH
+    feats = {k: v.reshape((CORPUS_BATCH, f) + v.shape[1:])
+             for k, v in pipe._features(frames).items()}
+    true_n = bp._true_n(lengths)
+
+    def vad_loop():
+        for r in range(CORPUS_BATCH):
+            pipe._vad_stage({k: v[r] for k, v in feats.items()},
+                            pipe.initial_state(),
+                            torch.arange(f, device=device) < int(true_n[r]))
+
+    runs = {"process_batch_masked": lambda: bp.process_batch_masked(batch,
+                                                                    lengths),
+            "process_batch_masked_pitch":
+                lambda: bp.process_batch_masked_pitch(batch, lengths),
+            "k3_on_batch_frames": lambda: pipe._features(frames),
+            "vad_row_loop": vad_loop}
+    samples = {k: [] for k in runs}
+    for a, b in (("process_batch_masked", "process_batch_masked_pitch"),
+                 ("k3_on_batch_frames", "vad_row_loop")):
+        for name in (a, b, b, a):
+            samples[name] += time_ms(runs[name])
+    out = {k: float(np.median(v)) for k, v in samples.items()}
+    audio_s = CORPUS_BATCH * length / SR
+    print(f"batch of {CORPUS_BATCH} x {length // SR} s ({f} frames each, "
+          f"int16 on the card): median device ms of 10 calls on {card}: "
+          + json.dumps(out))
+    print(f"process_batch_masked "
+          f"{audio_s / out['process_batch_masked'] * 1e3:.1f} audio-s/s of "
+          f"padded batch on {card}")
+    return out
 
 
 def time_ms(fn, reps: int = 5) -> list[float]:
@@ -675,7 +1132,8 @@ def main() -> int:
             print("  " + line.strip())
 
     pipe = FeaturePipeline(device=device)
-    err = {"view_features": 0.0, "view_pitch": 0.0, "frame_features": 0.0}
+    err = {"view_features": 0.0, "view_pitch": 0.0, "frame_features": 0.0,
+           "long_kernel_feats": 0.0, "long_kernel_pitch": 0.0}
     compare_kernels(pipe, random_rows(device, KERNEL_SIZES), err)
     check_zero_frames(pipe, device)
     for i, (case, fpipe) in enumerate(frame_pipes(device).items()):
@@ -691,8 +1149,13 @@ def main() -> int:
     compare_frame_kernel(pipe400._frame_consts, [frames_run["frames"]], err,
                          "frames path")
     engine = engine_runs(device, main["signal"], err)
+    long_run = long_runs(pipe, device, main["rows"], err)
+    gap_runs(device, main["signal"], err, card)
+    corpus_runs(device, main["signal"], err, card)
 
     ms = timings(pipe, main["rows"], pipe400, frames_run, card)
+    long_ms = long_timings(long_run, main["rows"], card)
+    batch_timings(device, main["signal"], card)
     for kernel, run in engine.items():
         mode = "samples" if kernel == "view_features" else "frames"
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "
@@ -711,6 +1174,15 @@ def main() -> int:
         "frame_features": ("sspv_tpu_torch/csrc/frame_features.cu",
                            "sspv_tpu/ops/pallas_kernels.py:43", frames_run),
     }
+    # the mesh wrappers at the one-card mesh; their bounds are K1's and K2's
+    # at the same shape
+    d1 = long_ms[LONG_SHARDS[0]]
+    ms.update((k, d1[k]) for k in d1)
+    for name, kernel, line in (("long_kernel_feats", "view_features", 304),
+                               ("long_kernel_pitch", "view_pitch", 367)):
+        sources[name] = ("sspv_tpu_torch/parallel/mesh.py",
+                         f"sspv_tpu/parallel/mesh.py:{line}", long_run)
+        bounds[name] = bounds[kernel]
     # library_ms: no single PyTorch call computes any of these functions
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

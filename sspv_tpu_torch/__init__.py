@@ -4,8 +4,10 @@ It ports the feature -> VAD -> pitch pipeline of the JAX package ``sspv_tpu``
 and its streaming engine: per-frame energy, ZCR, spectral entropy and MFCC
 of 16 kHz audio, the composite VAD, the VAD-gated banded-ACF pitch, on the
 signal-view path (frame = 2 * hop) and on the frames path (any geometry),
-and ``AudioRuntime`` over them. The three Pallas kernels of those paths are
-hand-written CUDA kernels for ``sm_90a`` (``csrc/``); the rest is PyTorch.
+and ``AudioRuntime`` over them; ``parallel.BatchPipeline`` runs batches of
+signals and long signals over a mesh of devices, behind the ``batch`` and
+``analyze`` CLIs. The three Pallas kernels of those paths are hand-written
+CUDA kernels for ``sm_90a`` (``csrc/``); the rest is PyTorch.
 The JAX package stays the reference the port is tested against. This
 package imports neither ``jax`` nor ``sspv_tpu``.
 
@@ -18,7 +20,7 @@ from .config import Config
 from .ops.pipeline import FeatureBlock, FeatureConfig, FeaturePipeline
 from .runtime import AudioRuntime
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 __all__ = ["AudioRuntime", "Config", "FeatureBlock", "FeatureConfig",
            "FeaturePipeline"]

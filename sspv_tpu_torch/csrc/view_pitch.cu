@@ -17,7 +17,10 @@
 // What the design does about it: 32 frames per block, so each basis element
 // read feeds 32 FMAs; the power rows (321 floats) and the ACF rows (320) stay
 // in shared memory between the two GEMMs and the peak pick, so nothing but
-// f0 and conf reaches device memory. All arithmetic is IEEE fp32.
+// f0 and conf reaches device memory. All arithmetic is IEEE fp32. A hop that
+// is not a multiple of 4 (e.g. the 322/161 framing) loads its rows one float
+// at a time into zero-padded rows of the tile, and its DFT reads each row as
+// float4s plus a scalar tail, with the same sums in the same order.
 
 #include <math.h>
 
@@ -59,9 +62,10 @@ __global__ void __launch_bounds__(kThreads) view_pitch_kernel(
   // Nyquist bin of every frame of the block (the inverse GEMM reads all of
   // them; frames past nb are zeros).
   for (int f = warp; f < kBlockFrames; f += nwarps) {
-    const float* x = tile + f * hop;
+    const float* x = tile + f * sspv::row_stride(hop);
     float q = 0.f;
-    for (int t = lane; t < frame; t += 32) q = fmaf(x[t], __ldg(nyq_b + t), q);
+    for (int t = lane; t < frame; t += 32)
+      q = fmaf(sspv::frame_sample(x, t, hop), __ldg(nyq_b + t), q);
     q = sspv::warp_sum(q);
     if (lane == 0) power[f * pstride + half] = q * q;
   }
@@ -133,7 +137,8 @@ static size_t view_pitch_smem(int hop, int nfft, int n_lags) {
                           (size_t)kBlockFrames * sspv::round4(n_lags));
 }
 
-// Returns the CUDA error of the launch (0 on success).
+// Returns the CUDA error of the launch (0 on success). `rows` is 16-byte
+// aligned.
 extern "C" int sspv_view_pitch(const float* rows, int n_frames, int hop,
                                const float* merged, const float* nyq_b,
                                int nfft, const float* inv_live,

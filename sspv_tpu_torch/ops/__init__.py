@@ -12,10 +12,13 @@ from .vad import (
     VadState,
     hangover_smooth,
     initial_packed_state,
+    initial_states,
     initial_vad_state,
     pack_state,
+    stack_states,
     streaming_vad,
     unpack_state,
+    unstack_states,
     vad_state_from_numpy,
     vad_state_to_numpy,
 )
@@ -40,10 +43,13 @@ __all__ = [
     "VadState",
     "hangover_smooth",
     "initial_packed_state",
+    "initial_states",
     "initial_vad_state",
     "pack_state",
+    "stack_states",
     "streaming_vad",
     "unpack_state",
+    "unstack_states",
     "vad_state_from_numpy",
     "vad_state_to_numpy",
     "LAUNCHES",

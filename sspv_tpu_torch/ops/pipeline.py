@@ -19,10 +19,11 @@ exactly the branches of the JAX package. ``pitch_track_signal`` (kernel K2
 on the rows view, or the Wiener-Khinchin matmuls on frames) gives the F0
 track, gated on the VAD.
 
-On a CPU device the kernels' plain PyTorch versions run instead. The view
-kernels also need hop % 4 == 0, an even n_fft and a shared entropy
-spectrum: a view geometry without them raises ``NotImplementedError`` on
-the view routes (the JAX package serves those with its XLA view path).
+On a CPU device the kernels' plain PyTorch versions run instead. K1 also
+needs hop % 4 == 0, an even n_fft and a shared entropy spectrum: a view
+geometry without them (the JAX package serves it with its XLA view path)
+takes the view routes with K3 on the frames formed from the signal on the
+device. K2 takes every view geometry.
 """
 
 from __future__ import annotations
@@ -193,6 +194,9 @@ class FeaturePipeline:
         # frames path everything else
         self._view_geometry = (c.frame_size == 2 * c.hop_size
                                and bool(np.all(window > 0)))
+        # K1 takes the view geometry only without _view_unsupported's gaps
+        self._view_kernel_ok = (self._view_geometry
+                                and _view_unsupported(c) is None)
         consts = {"window": window}
         consts["wc"], consts["ws"] = bases.windowed_dft_bases(
             c.frame_size, c.n_fft, c.window_type
@@ -275,9 +279,10 @@ class FeaturePipeline:
         )
 
     def supports_samples_dispatch(self) -> bool:
-        """Whether the engine may ship raw samples (the view path) instead
-        of frames: the view geometry, and one K1 takes."""
-        return self._view_geometry and _view_unsupported(self.cfg) is None
+        """Whether the engine may ship raw samples (the view routes frame
+        them on the device) instead of frames: the view geometry, as in the
+        JAX package."""
+        return self._view_geometry
 
     def host_rows_view(self, sig: np.ndarray) -> np.ndarray | None:
         """``(n+1, hop)`` rows view of a 1-D host signal, a free reshape of
@@ -341,17 +346,21 @@ class FeaturePipeline:
         CUDA, for every F >= 1)."""
         return fused_features(frames.to(torch.float32), **self._frame_consts)
 
-    def _check_view(self) -> None:
-        why = _view_unsupported(self.cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{why}: the view kernels do not take this geometry (the JAX "
-                "package serves it with its XLA view path, not ported)"
-            )
-
     def _features_from_rows(self, rows: torch.Tensor) -> dict:
         """Per-frame features of a ``(F+1, hop)`` rows view (K1 on CUDA)."""
         return fused_view_features(rows, **self._view_consts)
+
+    def _view_features(self, x: torch.Tensor, n: int) -> dict:
+        """Features of the first ``n`` frames of a view-geometry signal
+        (float32 1-D samples or the ``(n+1, hop)`` rows view, on the
+        device): K1 on the rows view, or in a view geometry K1 does not take
+        (``_view_unsupported``), K3 on the frames formed on the device."""
+        hop = self.cfg.hop_size
+        if self._view_kernel_ok:
+            rows = x if x.dim() == 2 else x[: (n + 1) * hop].reshape(n + 1, hop)
+            return self._features_from_rows(rows)
+        flat = x.reshape(-1)[: (n + 1) * hop]
+        return self._features(self._device_stream_frames(flat))
 
     def _device_stream_frames(self, signal: torch.Tensor) -> torch.Tensor:
         return stream_frames(signal, self.cfg.frame_size, self.cfg.hop_size)
@@ -418,11 +427,8 @@ class FeaturePipeline:
         samples or the ``(n+1, hop)`` rows view, on the device). ``true_n``
         marks the real frame count of a signal padded to a bucket: frames
         beyond it are masked out of the VAD state."""
-        self._check_view()
-        hop = self.cfg.hop_size
         x = signal.to(torch.float32)
-        rows = x if x.dim() == 2 else x[: (n + 1) * hop].reshape(n + 1, hop)
-        feats = self._features_from_rows(rows)
+        feats = self._view_features(x, n)
         if n <= self.SCAN_BLOCK_FRAMES:
             valid = None
             if true_n is not None:
@@ -600,8 +606,6 @@ class FeaturePipeline:
         m = min(n, n_pad)
         pvad[:m] = vad[:m]
         rows = self.host_rows_view(psig)
-        if rows is not None:
-            self._check_view()
         f0, conf = pitch_track_signal_gated(
             self._upload(psig if rows is None else rows), pvad,
             min_confidence, **self._pitch_kwargs(fmin, fmax),
@@ -763,7 +767,8 @@ class FeaturePipeline:
         """Bucketed raw int16 SAMPLES in (the engine's default dispatch),
         framed on the device through the view path (K1 on CUDA); frames
         beyond ``true_len`` samples are masked out of the carried state.
-        Needs :meth:`supports_samples_dispatch`."""
+        Needs :meth:`supports_samples_dispatch`; a view geometry K1 does
+        not take runs K3 on the frames formed on the device."""
         block, new_state, *_ = self._packed_signal_core(
             samples, packed_state, true_len
         )

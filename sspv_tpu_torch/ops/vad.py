@@ -38,10 +38,13 @@ __all__ = [
     "VadState",
     "hangover_smooth",
     "initial_packed_state",
+    "initial_states",
     "initial_vad_state",
     "pack_state",
+    "stack_states",
     "streaming_vad",
     "unpack_state",
+    "unstack_states",
     "vad_state_from_numpy",
     "vad_state_to_numpy",
 ]
@@ -77,27 +80,52 @@ def initial_vad_state(history_len: int = 256, hangover_on: int = 3, *,
     )
 
 
+def initial_states(batch: int, history_len: int = 256, hangover_on: int = 3,
+                   *, device) -> VadState:
+    """The initial state of ``batch`` rows: every field with a leading
+    ``(batch,)`` axis (``BatchPipeline.initial_states``,
+    ``sspv_tpu/parallel/mesh.py:153``)."""
+    s = initial_vad_state(history_len, hangover_on, device=device)
+    return VadState(*(x.expand((batch,) + x.shape).clone() for x in s))
+
+
+def stack_states(states) -> VadState:
+    """One batched ``VadState`` (leading row axis) from per-row states."""
+    return VadState(*(torch.stack(fields) for fields in zip(*states)))
+
+
+def unstack_states(state: VadState) -> list[VadState]:
+    """The per-row states of a batched ``VadState``."""
+    return [VadState(*fields) for fields in zip(*(x.unbind(0) for x in state))]
+
+
 def vad_state_from_numpy(state, *, device) -> VadState:
     """A ``VadState`` from four array-likes ``(energy_buf, zcr_buf, count,
     last_voiced)``, e.g. the JAX package's ``VadState`` (each field goes
-    through ``np.asarray``)."""
+    through ``np.asarray``); batched states (a leading row axis on every
+    field) carry over as they are."""
     e, z, c, lv = (np.asarray(x) for x in state)
     return VadState(
         energy_buf=torch.tensor(e, dtype=torch.float32, device=device),
         zcr_buf=torch.tensor(z, dtype=torch.float32, device=device),
-        count=torch.tensor(int(c), dtype=torch.int32, device=device),
-        last_voiced=torch.tensor(int(lv), dtype=torch.int32, device=device),
+        count=torch.tensor(c.astype(np.int32), device=device),
+        last_voiced=torch.tensor(lv.astype(np.int32), device=device),
     )
 
 
 def vad_state_to_numpy(state: VadState) -> tuple:
     """``(energy_buf f32, zcr_buf f32, count int32, last_voiced int32)`` as
-    NumPy arrays: the fields of the JAX package's ``VadState``."""
+    NumPy arrays: the fields of the JAX package's ``VadState`` (the two
+    scalars as ``np.int32``, or ``(B,)`` arrays for a batched state)."""
+    def ints(t):
+        a = t.cpu().numpy().astype(np.int32)
+        return np.int32(a) if a.ndim == 0 else a
+
     return (
         state.energy_buf.cpu().numpy(),
         state.zcr_buf.cpu().numpy(),
-        np.int32(state.count.item()),
-        np.int32(state.last_voiced.item()),
+        ints(state.count),
+        ints(state.last_voiced),
     )
 
 

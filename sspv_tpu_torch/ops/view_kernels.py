@@ -8,7 +8,8 @@ Counterpart of ``sspv_tpu/ops/pallas_view.py``. Both kernels take the
 - ``fused_view_features`` (K1, ``csrc/view_features.cu``): energy, zcr,
   entropy ``(F,)`` and mfcc ``(F, num_ceps)``;
 - ``fused_view_pitch`` (K2, ``csrc/view_pitch.cu``): the ungated banded-ACF
-  ``(f0, conf)``, ``(F,)`` each.
+  ``(f0, conf)``, ``(F,)`` each, at any hop (float4 row reads where
+  hop % 4 == 0, one float at a time otherwise).
 
 Each wrapper dispatches on the device of ``rows``: a CUDA tensor launches the
 hand-written kernel (or raises), a CPU tensor runs the plain version. There
@@ -51,8 +52,15 @@ def _row_blocks(rows: torch.Tensor, block_frames: int):
 
 def _hop_phase(rows, basis):
     """``frames @ basis`` for every frame of a rows view, as two half-frame
-    products (the frame matrix is never formed)."""
+    products (the frame matrix is never formed). A 1-D ``basis`` runs as
+    row reductions, not a matrix-vector product: a CPU matrix-vector
+    product rounds a row differently with the number of rows, and the
+    plain versions must give every frame the same bits however the frames
+    are split (``parallel.mesh``'s shards)."""
     hop = rows.shape[1]
+    if basis.dim() == 1:
+        return ((rows[:-1] * basis[:hop]).sum(dim=1)
+                + (rows[1:] * basis[hop:]).sum(dim=1))
     return rows[:-1] @ basis[:hop] + rows[1:] @ basis[hop:]
 
 
@@ -77,8 +85,7 @@ def view_features_plain(rows, *, w2, wm, wnyq, fb_t, dct, lifter,
 
 def _view_features_block(rows, w2, wm, wnyq, fb_t, dct, lifter) -> dict:
     hop = rows.shape[1]
-    top, bot = rows[:-1], rows[1:]
-    energy = (top * top) @ w2[:hop] + (bot * bot) @ w2[hop:]
+    energy = _hop_phase(rows * rows, w2)
     # ZCR on the raw rows (a strictly positive window keeps sign(x*w) ==
     # sign(x)): per-row sign changes shared by the two frames holding the row,
     # plus the change across the row boundary inside each frame.
@@ -132,12 +139,8 @@ def _check_rows(rows: torch.Tensor) -> torch.Tensor:
             f"rows must be a (F+1, hop) float32 tensor, got {tuple(rows.shape)} "
             f"{rows.dtype}"
         )
-    if rows.shape[1] % 4:
-        raise NotImplementedError(
-            f"the view kernels need hop % 4 == 0, got hop={rows.shape[1]}"
-        )
     rows = rows.contiguous()
-    if rows.data_ptr() % 16:  # the kernels read rows as float4
+    if rows.data_ptr() % 16:  # the kernels read rows as float4 (hop % 4 == 0)
         rows = rows.clone()
     return rows
 
@@ -173,6 +176,9 @@ def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter) -> dict:
     dev = rows.device
     f, hop = rows.shape[0] - 1, rows.shape[1]
     frame, n_fft = 2 * hop, wm.shape[1]
+    if hop % 4:
+        raise NotImplementedError(
+            f"the view_features kernel needs hop % 4 == 0, got hop={hop}")
     if n_fft % 2:
         raise NotImplementedError("the view_features kernel needs an even n_fft")
     n_bins, num_filters = fb_t.shape

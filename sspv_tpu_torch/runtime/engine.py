@@ -202,10 +202,11 @@ class AudioRuntime:
         if self._low_latency and self._buckets[0] > 8:
             self._buckets = (8,) + self._buckets
         # Samples dispatch (default): ship raw int16 samples and frame ON
-        # DEVICE via the signal-view path (K1) — 4x fewer bytes per dispatch
-        # than the f32 frame-matrix layout (2x dtype, 2x the 50%-overlap
-        # duplication). The frames layout (K3) serves every geometry the
-        # view kernels do not take.
+        # DEVICE via the signal-view path (K1, or K3 on the device-formed
+        # frames in a view geometry K1 does not take) — 4x fewer bytes per
+        # dispatch than the f32 frame-matrix layout (2x dtype, 2x the
+        # 50%-overlap duplication). The frames layout (K3) serves every
+        # other geometry.
         self._samples_dispatch = _parse_flag(
             getattr(Config, "TPU_STREAM_SAMPLES_DISPATCH", 1), True,
             "TPU_STREAM_SAMPLES_DISPATCH",

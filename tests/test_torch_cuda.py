@@ -59,19 +59,27 @@ UNSUPPORTED = {
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_unsupported_geometry_raises(device, name):
     """View geometries (frame == 2*hop, positive window) that the view
-    kernels do not take: the JAX package serves them with its XLA view
-    path, which is not ported, so the view routes refuse them on every
-    device, and the engine's samples dispatch is off for them. The frames
-    path still serves them."""
+    kernels do not take, which the JAX package serves with its XLA view
+    path: the view routes no longer raise but run K3 on the frames formed
+    on the device, so process_signal_device gives exactly the frames path's
+    block (process_signal), launching K3 and no view kernel; the engine's
+    samples dispatch stays on, as in the JAX package."""
     pipe = FeaturePipeline(FeatureConfig(**UNSUPPORTED[name]),
                            device=_device(device))
     sig = np.random.default_rng(0).normal(0, 1000, 4000).astype(np.float32)
-    with pytest.raises(NotImplementedError):
-        pipe.process_signal_device(sig)
-    assert not pipe.supports_samples_dispatch()
-    block, _ = pipe.process_signal(sig)
+    before = dict(vk.LAUNCHES)
+    got, got_state = pipe.process_signal_device(sig)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        assert vk.LAUNCHES["frame_features"] == before["frame_features"] + 1
+        assert vk.LAUNCHES["view_features"] == before["view_features"]
+    assert pipe.supports_samples_dispatch()
+    block, state = pipe.process_signal(sig)
     assert block.energy.shape == (1 + (4000 - pipe.cfg.frame_size)
                                   // pipe.cfg.hop_size,)
+    for a, b in zip(got, block):
+        assert torch.equal(a, b)
+    assert torch.equal(got_state.count, state.count)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -135,6 +143,37 @@ def test_kernels_match_plain_versions(n):
     assert _nmse(conf.cpu(), pconf.cpu()) <= 1e-9
     assert vk.LAUNCHES["view_features"] == before["view_features"] + 1
     assert vk.LAUNCHES["view_pitch"] == before["view_pitch"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 1025])
+def test_pitch_kernel_takes_any_hop(n):
+    """K2 at 322/161 (hop % 4 != 0: one-float sample reads) against its
+    plain version, and through pitch_track_signal."""
+    from sspv_tpu_torch.ops.pitch import pitch_track_signal
+
+    dev = _device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = FeaturePipeline(FeatureConfig(frame_size=322, hop_size=161),
+                           device=dev)
+    merged, nyq_b, inv_live, inv_nyq = pipe._acf_bases(320)
+    kw = dict(merged=merged, nyq_b=nyq_b, inv_live=inv_live, inv_nyq=inv_nyq,
+              lag_min=40, lag_max=320, sample_rate=16000)
+    rows = torch.from_numpy(
+        np.random.default_rng(n).normal(0, 1000, (n + 1, 161)).astype(np.float32)
+    ).to(dev)
+    before = vk.LAUNCHES["view_pitch"]
+    f0, conf = vk.fused_view_pitch(rows, **kw)
+    pf0, pconf = vk.view_pitch_plain(rows, **kw)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES["view_pitch"] == before + 1
+    assert (f0 == pf0).float().mean().item() >= 0.999
+    assert _nmse(conf.cpu(), pconf.cpu()) <= 1e-9
+    vad = torch.ones(n, dtype=torch.int32, device=dev)
+    tf0, tconf = pitch_track_signal(rows, vad, 322, 161,
+                                    min_confidence=float("-inf"))
+    assert vk.LAUNCHES["view_pitch"] == before + 2
+    assert torch.equal(tf0, f0) and torch.equal(tconf, conf)
 
 
 def _frame_consts(dev, frame: int, window: str = "hamming",
@@ -292,3 +331,46 @@ def test_engine_on_cuda_matches_cpu(monkeypatch, samples_dispatch, kernel):
     np.testing.assert_array_equal(got["vad"], want["vad"])
     for k in ("energy", "spec_entropy", "mfcc"):
         assert _nmse(got[k], want[k]) <= 1e-9, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+def test_mesh_programs_on_cuda(d):
+    """The mesh programs on the card, the card named d times: the shard
+    route launches K1/K2 once per shard and is bit-identical to the
+    single-device calls; a masked batch launches K3 once and equals a CPU
+    run (zcr and VAD exactly, the rest NMSE)."""
+    from sspv_tpu_torch.ops.pitch import pitch_track_signal_gated
+    from sspv_tpu_torch.parallel import BatchPipeline, Mesh
+
+    dev = _device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(d)
+    sig = rng.normal(0, 3000, 160 * 1202 + 320).astype(np.float32)
+    bp = BatchPipeline(Mesh([dev] * d))
+    before = dict(vk.LAUNCHES)
+    block, state, f0, conf = bp.process_long_pitch(sig)
+    torch.cuda.synchronize()
+    for k in ("view_features", "view_pitch"):
+        assert vk.LAUNCHES[k] == before[k] + d, k
+    one, _ = bp.pipe.process_signal_device(sig)
+    for a, b in zip(block, one):
+        assert torch.equal(a, b)
+    f0_1, conf_1 = pitch_track_signal_gated(
+        torch.from_numpy(sig).to(dev), one.vad, 0.3,
+        **bp.pipe._pitch_kwargs(50.0, 400.0))
+    assert torch.equal(f0, f0_1) and torch.equal(conf, conf_1)
+    lengths = [16000, 8000, 319, 0]
+    sigs = np.zeros((4, 16000), np.int16)
+    for i, n in enumerate(lengths):
+        sigs[i, :n] = rng.normal(0, 3000, n)
+    before = vk.LAUNCHES["frame_features"]
+    got = bp.process_batch_masked(sigs, lengths)
+    assert vk.LAUNCHES["frame_features"] == before + 1
+    want = BatchPipeline(Mesh([torch.device("cpu")])).process_batch_masked(
+        sigs, lengths)
+    gb, wb = got[0], want[0]
+    assert torch.equal(gb.zcr.cpu(), wb.zcr) and torch.equal(gb.vad.cpu(), wb.vad)
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(getattr(gb, k).cpu(), getattr(wb, k)) <= 1e-9, k
+    assert torch.equal(got[1].count.cpu(), want[1].count)

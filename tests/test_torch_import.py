@@ -25,13 +25,16 @@ def test_import_leaves_jax_sspv_tpu_triton_and_cuda_alone():
     code = (
         "import sys\n"
         f"sys.path.insert(0, {str(REPO)!r})\n"
-        "import sspv_tpu_torch, sspv_tpu_torch.ops\n"
+        "import sspv_tpu_torch, sspv_tpu_torch.ops, sspv_tpu_torch.parallel\n"
+        "import sspv_tpu_torch.batch, sspv_tpu_torch.analyze\n"
+        "import sspv_tpu_torch.utils.export\n"
         "import torch\n"
         "from sspv_tpu_torch.ops import _build\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
         "assert _build._lib is None\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "print('clean')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
