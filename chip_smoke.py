@@ -5,24 +5,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 
 1. checks for a CUDA device (exits non-zero without one), turns TF32 off,
    and prints the card's name and power limit;
-2. builds the three kernels from ``sspv_tpu_torch/csrc`` with nvcc;
+2. builds the kernels from ``sspv_tpu_torch/csrc`` with nvcc (one nvcc per
+   source, all at once);
 3. holds each kernel against its plain PyTorch version on the card: the
    view kernels K1/K2 on random rows of 1 to 100 000 frames, the frames
    kernel K3 on random frames of 1 to 100 000 rows at frame 320 and 400,
-   with a Hann window and with a separate 1024-point entropy spectrum, and
-   each again on its main path's own input, the engine's bucket-padded
-   blocks included (zcr exactly equal, energy/entropy/mfcc and pitch
-   confidence NMSE <= 1e-9, F0 equal on >= 99.9 % of frames);
+   with a Hann window and with a separate 1024-point entropy spectrum
+   (its FFT route), and with an odd and a non-power-of-two ``n_fft`` (its
+   dense route), and each again on its main path's own input, the engine's
+   bucket-padded blocks included (zcr exactly equal, energy/entropy/mfcc
+   and pitch confidence NMSE <= 1e-9, F0 equal on >= 99.9 % of frames);
 4. drives the offline view path on one hour of synthetic speech-like audio
-   (``bench.synth_signal``): ``process_signal_device`` (features + VAD) and
+   (``utils.synth.synth_signal``): ``process_signal_device`` (features + VAD) and
    ``pitch_track_signal`` on the uploaded rows view, then
    ``process_signal_pitch_auto`` on a 37 s clip; it requires K1 and K2 to
    have launched, feature NMSE <= 1e-5 against the NumPy oracle and VAD
    decisions equal to the sequential engine oracle on the first 600 s, and a
    median voiced F0 within 5 Hz of the 130 Hz tone;
 5. drives the offline frames path: ``process_signal_device`` on the same
-   hour at the 400/160 framing (359,998 frames); it requires K3 (and no
-   view kernel) to have launched, feature NMSE <= 1e-5 against the oracle
+   hour at the 400/160 framing (359,998 frames); it requires K3's FFT route
+   (and no view kernel) to have launched, feature NMSE <= 1e-5 against the oracle
    on windowed 400-sample frames and VAD equal to the engine oracle on the
    first 600 s;
 6. runs the streaming engine ``AudioRuntime`` over 600 s of the same audio
@@ -56,7 +58,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    gave it; it prints the corpus audio-s/s (host clock) split into decode,
    device and write time;
 9. times each kernel against its plain version at its main path's shape,
-   and the end-to-end calls, with CUDA events (median of 10 calls each):
+   and the end-to-end calls, with CUDA events (median of 10 calls each;
+   beside K3 and K2 the FFT stage alone through ``torch.fft``, a yardstick
+   the port never calls):
    the view and frames paths, ``process_long(_pitch)`` per mesh, and
    ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
    its K3 launch and per-row VAD loop apart; and the engine's
@@ -64,8 +68,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 10. bounds each kernel by the least work of its function: the operations
     of the features or ACF computed with real FFTs and a sparse mel
     filterbank, or the bytes it must move, whichever takes longer; it also
-    prints the bound of the kernels' own design (DFT and ACF as dense fp32
-    GEMMs). The mesh wrappers' bounds are K1's and K2's at the same shape.
+    prints the bound of the kernels' own design: for K1 the DFT as a dense
+    fp32 GEMM, for K3 and K2 the same FFT operations and bytes plus the
+    shared-memory traffic of their stages. The mesh wrappers' bounds are
+    K1's and K2's at the same shape.
 
 Any failed check raises. The last lines are the card, one JSON object with
 every kernel's launches, error, times and bound, and the
@@ -94,9 +100,13 @@ CHECK_SECONDS = 600
 CLIP_SECONDS = 37
 KERNEL_SIZES = (1, 17, 1023, 1025, 100_000)
 FRAME_KERNEL_SIZES = (1, 7, 8, 255, 257, 100_000)
-# K3 cases: (frame_size, window, entropy_n_fft)
-FRAME_KERNEL_CASES = ((320, "hamming", 512), (400, "hamming", 512),
-                      (400, "hanning", 512), (400, "hamming", 1024))
+# K3 cases: (frame_size, window, entropy_n_fft, n_fft, the route it takes)
+FRAME_KERNEL_CASES = ((320, "hamming", 512, 512, "fft"),
+                      (400, "hamming", 512, 512, "fft"),
+                      (400, "hanning", 512, 512, "fft"),
+                      (400, "hamming", 1024, 512, "fft"),
+                      (400, "hamming", 511, 511, "dense"),
+                      (400, "hamming", 480, 480, "dense"))
 ASR_FRAME, HOP = 400, 160  # the offline frames path's 25 ms / 10 ms framing
 GAP_FRAME, GAP_HOP = 322, 161  # a view geometry K1 does not take (hop % 4)
 ENGINE_SECONDS = 600
@@ -118,6 +128,8 @@ CLI_FILES = 5
 # its full 700 W): fp32 operations outside the tensor cores, device memory.
 FP32_OPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# Shared memory: 128 bytes per clock and SM, 132 SMs, 1.98 GHz boost clock.
+SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 NMSE_KERNEL = 1e-9  # fp32 kernel vs fp32 plain version: rounding order only
 NMSE_ORACLE = 1e-5  # the repo's feature-parity gate against the oracle
 F0_MATCH = 0.999  # argmax picks may flip where two lags tie to rounding
@@ -231,17 +243,23 @@ def frame_pipes(device) -> dict:
     return {
         case: FeaturePipeline(FeatureConfig(
             frame_size=case[0], hop_size=HOP, window_type=case[1],
-            entropy_n_fft=case[2]), device=device)
+            entropy_n_fft=case[2], n_fft=case[3]), device=device)
         for case in FRAME_KERNEL_CASES
     }
 
 
 def compare_frame_kernel(consts: dict, frames_list, err: dict,
-                         label: str) -> None:
+                         label: str, route: str = "fft") -> None:
     """K3 against its plain version on the same frames (tensors on the
-    card)."""
+    card), through the route the geometry must take."""
+    from sspv_tpu_torch.ops import ROUTES
+
     for frames in frames_list:
+        before = dict(ROUTES)
         zcr_equal, e = feature_parity("frame_features", frames, consts, err)
+        require(ROUTES["frame_features_" + route] == before[
+            "frame_features_" + route] + 1, f"K3 took its {route} route "
+            f"({label})")
         print(f"K3 vs plain {label} F={frames.shape[0]}: zcr_equal="
               f"{zcr_equal} nmse=" + json.dumps(e))
         require(zcr_equal, f"K3 zcr equal ({label}, F={frames.shape[0]})")
@@ -282,10 +300,21 @@ def sync(device) -> None:
 
 
 def reset_launches() -> None:
-    from sspv_tpu_torch.ops import LAUNCHES
+    from sspv_tpu_torch.ops import LAUNCHES, ROUTES
 
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def require_fft_route(label: str) -> None:
+    """Every K3 launch since the counts were reset took the FFT route."""
+    from sspv_tpu_torch.ops import LAUNCHES, ROUTES
+
+    print(f"{label} K3 routes: " + json.dumps(ROUTES))
+    require(ROUTES["frame_features_fft"] == LAUNCHES["frame_features"] > 0
+            and ROUTES["frame_features_dense"] == 0,
+            f"{label}: K3 ran its FFT route")
 
 
 def frames_path(pipe, device, sig: np.ndarray, check_seconds: int) -> dict:
@@ -305,6 +334,7 @@ def frames_path(pipe, device, sig: np.ndarray, check_seconds: int) -> dict:
     launches = dict(LAUNCHES)
     print("frames-path launches: " + json.dumps(launches))
     require(launches["frame_features"] > 0, "K3 launched on the frames path")
+    require_fft_route("frames path")
     require(launches["view_features"] == 0 and launches["view_pitch"] == 0,
             "no view kernel on the frames path")
     n = 1 + (len(sig) - c.frame_size) // c.hop_size
@@ -475,6 +505,8 @@ def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
     for mode, kernel in ((1, "view_features"), (0, "frame_features")):
         run = run_engine(device, sig16, mode, record=kernel)
         require(run["launches"][kernel] > 0, f"engine launched {kernel}")
+        if kernel == "frame_features":
+            require_fft_route("engine frames dispatch")
         calls_parity(kernel, run.pop("calls"), err, "engine")
         rt = run["rt"]
         rows = list(rt.processed_data)
@@ -533,8 +565,8 @@ def main_path(pipe, device, seconds: int, check_seconds: int,
     """Features + VAD + pitch through the public entry points, checked."""
     import torch
 
-    from bench import _oracle_features, synth_signal
     from sspv_tpu_torch.ops import LAUNCHES, pitch_track_signal
+    from sspv_tpu_torch.utils.synth import oracle_features, synth_signal
 
     sys.path.insert(0, str(ROOT / "tests"))
     import oracle
@@ -561,7 +593,7 @@ def main_path(pipe, device, seconds: int, check_seconds: int,
     for k in ("energy", "zcr", "entropy", "mfcc"):
         require(bool(torch.isfinite(getattr(block, k)).all()), f"{k} finite")
     vf = 1 + (check_seconds * SR - 320) // 160
-    want = _oracle_features(sig[: check_seconds * SR])
+    want = oracle_features(sig[: check_seconds * SR])
     feat_nmse = {k: nmse(host(getattr(block, k)[:vf]), want[k])
                  for k in ("energy", "zcr", "entropy", "mfcc")}
     print("feature nmse vs oracle (first %d s): %s"
@@ -803,6 +835,7 @@ def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             require(all("error" not in s for s in summaries), "corpus errors")
             require(launches["frame_features"] == n_batches,
                     f"{label}: one K3 launch per batch")
+            require_fft_route(label)
             require(launches["view_features"] == 1,
                     f"{label}: the oversized file took the view path")
             if want_pitch:
@@ -1011,6 +1044,21 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
     fc = pipe400._frame_consts
     frames, sig400 = frames_run["frames"], frames_run["signal"]
     block, _ = pipe.process_signal_device(rows)
+    # The FFT stage alone through torch.fft (cuFFT), which the port never
+    # calls: K3's windowed 512-point power spectrum, and K2's two 1024-point
+    # transforms on the frames formed beforehand.
+    import torch
+
+    window = fc["window"]
+    acf_frames = torch.cat([rows[:-1], rows[1:]], dim=1)
+
+    def k3_fft_stage():
+        return torch.fft.rfft(frames * window, n=pipe400.cfg.n_fft).abs() ** 2
+
+    def k2_fft_stage():
+        return torch.fft.irfft(torch.fft.rfft(acf_frames, n=1024).abs() ** 2,
+                               n=1024)
+
     runs = {
         "view_features": lambda: vk.fused_view_features(rows, **feat),
         "view_features_plain": lambda: vk.view_features_plain(rows, **feat),
@@ -1022,19 +1070,29 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
         "pitch": lambda: pitch_track_signal(rows, block.vad,
                                             min_confidence=0.3),
         "frames_features_vad": lambda: pipe400.process_signal_device(sig400),
+        "frame_features_fft_stage_library": k3_fft_stage,
+        "view_pitch_fft_stage_library": k2_fft_stage,
+        # K3 as it runs beside a separate entropy spectrum (it then skips
+        # its entropy stage): the difference is that stage's cost
+        "frame_features_without_entropy": lambda: fk._launch(
+            frames, compute_entropy=False,
+            **{k: v for k, v in fc.items() if k != "entropy_bases"}),
     }
     samples = {k: [] for k in runs}
     for a, b in (("view_features_plain", "view_features"),
                  ("view_pitch_plain", "view_pitch"),
                  ("frame_features_plain", "frame_features"),
+                 ("frame_features_fft_stage_library", "frame_features"),
+                 ("view_pitch_fft_stage_library", "view_pitch"),
+                 ("frame_features_without_entropy", "frames_features_vad"),
                  ("features_vad", "pitch")):
         for name in (a, b, b, a):
             samples[name] += time_ms(runs[name])
-    samples["frames_features_vad"] += time_ms(runs["frames_features_vad"], 10)
     out = {k: float(np.median(v)) for k, v in samples.items()}
     spread = {k: [float(min(v)), float(max(v))] for k, v in samples.items()}
     audio_s = (rows.shape[0] - 1) * 160 / SR
-    print(f"median device ms of 10 calls at {rows.shape[0] - 1} frames of "
+    print(f"median device ms of 10 calls (20 for K3 and K2) at "
+          f"{rows.shape[0] - 1} frames of "
           f"320 and {frames.shape[0]} of {frames.shape[1]} ({audio_s:.0f} s "
           f"of audio) on {card}: " + json.dumps(out))
     print("min/max ms: " + json.dumps(spread))
@@ -1058,15 +1116,32 @@ def rfft_ops(n: int) -> float:
     return 2.5 * n * math.log2(n)
 
 
+def rfft_smem_floats(n_fft: int) -> int:
+    """Shared-memory floats one frame's real FFT in ``csrc/fft.cuh`` reads
+    and writes: the packed samples, every stage's sequence in and out and
+    its twiddles, and the untangling step's reads."""
+    from sspv_tpu_torch.ops import fft_tables
+
+    stages = sum(2 * n_fft + fft_tables.stage_twiddle_floats(n_left, r)
+                 * (n_fft // 2 // n_left)
+                 for n_left, _, r in fft_tables.stage_plan(n_fft))
+    return n_fft + stages + 6 * (n_fft // 4 + 1)
+
+
 def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     """Each kernel's bounds at its main-path shape, as ``{name: ((ms, what
     bounds it), design ms)}``. Both count the bytes the function must move
     (each input read once, each output written once) and fp32 operations
     (a multiply-add is 2). The first counts the least operations of the
     function: the power spectrum and the ACF by real FFTs, the mel
-    filterbank by its nonzero weights. The second, the ceiling of the
-    kernels' design, counts the DFT, the ACF and the filterbank as the
-    dense GEMMs the kernels run."""
+    filterbank by its nonzero weights. The second is the ceiling of the
+    kernel's own design: for K1 the DFT and the filterbank as the dense
+    GEMMs it runs; for K3 and K2 the FFTs at the kernel's transform size
+    (K2's power of two against the least size the ACF needs), or the
+    shared-memory traffic of their design over ``SMEM_BYTES_PER_S``,
+    whichever is larger."""
+    from sspv_tpu_torch.ops import fft_tables
+
     c = pipe.cfg
     n, hop = rows.shape[0] - 1, rows.shape[1]
     frame, bins = 2 * hop, c.n_fft // 2 + 1
@@ -1081,27 +1156,40 @@ def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     k1_bytes = (4 * (n + 1) * hop + 4 * (frame * c.n_fft + 2 * frame)
                 + const_bytes + n * out_bytes)
     k1 = (n * (rfft_ops(c.n_fft) + frame_ops + tail),
-          n * (2 * frame * c.n_fft + frame_ops + tail_gemm), k1_bytes)
+          n * (2 * frame * c.n_fft + frame_ops + tail_gemm), k1_bytes, 0)
     pk = pitch_kernel_kwargs(pipe)
-    nfft_acf, (half, n_lags) = pk["merged"].shape[1], pk["inv_live"].shape
-    # frame energy, power spectrum, normalization and peak pick
-    acf_rest = 2 * frame + 3 * half + 3 * n_lags
-    k2_bytes = (4 * (n + 1) * hop + 4 * (frame * nfft_acf + frame
-                                         + half * n_lags + n_lags) + 8 * n)
-    k2 = (n * (2 * rfft_ops(nfft_acf) + acf_rest),
-          n * (2 * frame * nfft_acf + 2 * half * n_lags + acf_rest), k2_bytes)
+    nfft_least, n_lags = pk["merged"].shape[1], pk["inv_live"].shape[1]
+    # the least transform of the linear ACF (frame + lag_max rounded up to
+    # 128) against the kernel's power of two; power spectrum,
+    # normalization and peak pick; the kernel reads the rows and its
+    # twiddle table and writes f0 and conf
+    n_acf = fft_tables.acf_fft_size(frame, n_lags)  # the kernel's transform
+    k2_bytes = 4 * (n + 1) * hop + 4 * fft_tables.twiddle_table(n_acf).size \
+        + 8 * n
+    acf_rest = lambda nfft: 3 * (nfft // 2 + 1) + 3 * n_lags
+    # two FFTs, the power row out and in, its even extension, the ACF row
+    k2_smem = n * 4 * (2 * rfft_smem_floats(n_acf) + 2 * (n_acf // 2 + 1)
+                       + n_acf + 2 * n_lags)
+    k2 = (n * (2 * rfft_ops(nfft_least) + acf_rest(nfft_least)),
+          n * (2 * rfft_ops(n_acf) + acf_rest(n_acf)), k2_bytes, k2_smem)
     m, fr = frames.shape
     c4 = pipe400.cfg
     bins4, nf4, nc4 = c4.n_fft // 2 + 1, c4.num_filters, c4.num_ceps
     nnz4 = int((pipe400._frame_consts["fb_t"] != 0).sum())
     tail4 = 3 * bins4 + 2 * nnz4 + nf4 + 2 * nf4 * nc4 + nc4 + 5 * bins4
-    k3_bytes = (4 * m * fr + 4 * (fr + 2 * fr * bins4 + bins4 * nf4
-                                  + nf4 * nc4 + nc4) + m * 4 * (3 + nc4))
-    k3 = (m * (rfft_ops(c4.n_fft) + 3 * fr + tail4),
-          m * (4 * fr * bins4 + 3 * fr + tail4 + 2 * (bins4 * nf4 - nnz4)),
-          k3_bytes)
-    return {name: (bound(ops, nbytes), bound(gemm_ops, nbytes)[0])
-            for name, (ops, gemm_ops, nbytes) in
+    k3_bytes = (4 * m * fr + 4 * (fr + fft_tables.twiddle_table(c4.n_fft).size
+                                  + bins4 * nf4 + 2 * nf4 + nf4 * nc4 + nc4)
+                + m * 4 * (3 + nc4))
+    # the FFT, the power row out, the ranged mel sum, the log-mel row, the
+    # entropy's two passes, the DCT
+    k3_smem = m * 4 * (rfft_smem_floats(c4.n_fft) + bins4 + nnz4 + nf4
+                       + 2 * bins4 + nf4 * nc4)
+    k3_ops = m * (rfft_ops(c4.n_fft) + 3 * fr + tail4)
+    k3 = (k3_ops, k3_ops, k3_bytes, k3_smem)
+    return {name: (bound(ops, nbytes),
+                   max(bound(design_ops, nbytes)[0],
+                       1e3 * smem / SMEM_BYTES_PER_S))
+            for name, (ops, design_ops, nbytes, smem) in
             (("view_features", k1), ("view_pitch", k2),
              ("frame_features", k3))}
 
@@ -1139,7 +1227,8 @@ def main() -> int:
     for i, (case, fpipe) in enumerate(frame_pipes(device).items()):
         compare_frame_kernel(fpipe._frame_consts,
                              random_frames(device, case[0], seed=i), err,
-                             "frame=%d %s entropy_n_fft=%d" % case)
+                             "frame=%d %s entropy_n_fft=%d n_fft=%d" % case[:4],
+                             route=case[4])
 
     main = main_path(pipe, device, MAIN_SECONDS, CHECK_SECONDS, CLIP_SECONDS)
     compare_kernels(pipe, [main["rows"]], err)  # at the main path's shape
@@ -1161,7 +1250,9 @@ def main() -> int:
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "
               f"audio-s/s (host clock, {ENGINE_SECONDS} s of audio) on {card}")
     bounds = kernel_bounds(pipe, main["rows"], pipe400, frames_run["frames"])
-    print("design bound ms (DFT/ACF/filterbank as dense fp32 GEMMs): "
+    print("design bound ms (K1: DFT/filterbank as dense fp32 GEMMs; K3, K2: "
+          "FFT operations, bytes, or the design's shared-memory traffic at "
+          f"{SMEM_BYTES_PER_S / 1e12:.1f} TB/s): "
           + json.dumps({k: v[1] for k, v in bounds.items()}))
     require("jax" not in sys.modules and "sspv_tpu" not in sys.modules,
             "no jax and no sspv_tpu imported")
@@ -1183,13 +1274,15 @@ def main() -> int:
         sources[name] = ("sspv_tpu_torch/parallel/mesh.py",
                          f"sspv_tpu/parallel/mesh.py:{line}", long_run)
         bounds[name] = bounds[kernel]
-    # library_ms: no single PyTorch call computes any of these functions
+    # library_ms: no single PyTorch call computes any of these functions;
+    # fft_stage_library_ms is the FFT stage alone through torch.fft
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path["launches"][name], "max_abs_err": err[name],
          "ms": ms[name], "plain_ms": ms[name + "_plain"],
          "bound_ms": bounds[name][0][0], "bound_by": bounds[name][0][1],
-         "library_ms": None}
+         "library_ms": None,
+         "fft_stage_library_ms": ms.get(name + "_fft_stage_library")}
         for name, (src, rep, path) in sources.items()
     ]
     print(card)

@@ -7,35 +7,51 @@
 // ZCR = sign changes of the WINDOWED samples x w (a window with zeros, such as
 // Hann, changes the count) times the f32 reciprocal of the frame size, as the
 // JAX package's compiled programs compute `count / frame_size`; the power of
-// the n_bins bins from the windowed DFT pair re = x . wc[:, k],
-// im = x . ws[:, k]; mel (clamped at 1e-10) -> log -> ortho DCT -> lifter;
-// and, unless the entropy spectrum is a separate one (the wrapper then
-// computes it and the kernel writes zeros), the normalized-PSD entropy
-// (clamped at 1e-12) / log(n_bins). Frames are independent rows here, not the
-// overlapping rows view of K1. Only energy, zcr, entropy (F,) and mfcc
-// (F, num_ceps) reach device memory.
+// the n_bins bins of the windowed frame's spectrum; mel (clamped at 1e-10) ->
+// log -> ortho DCT -> lifter; and, unless the entropy spectrum is a separate
+// one (the wrapper then computes it and the kernel writes zeros), the
+// normalized-PSD entropy (clamped at 1e-12) / log(n_bins). Frames are
+// independent rows here, not the overlapping rows view of K1. Only energy,
+// zcr, entropy (F,) and mfcc (F, num_ceps) reach device memory.
 //
-// What bounds it on the H100: the DFT pair, 2 * 2 * frame * n_bins flop per
-// frame (0.41 MFLOP at 400 x 257), runs as fp32 FMAs outside the tensor cores
-// (67 TFLOP/s peak); the frames are read once (0.6 GB per hour of audio at
-// 400/160, 0.18 ms of HBM), so it is FMA-bound. The TPU kernel held both
-// 400 x 257 bases in VMEM; here they do not fit in a block's shared memory
-// beside the frames.
-// What the design does about it: 32 frames per block and one thread per bin
-// for the bins that fill whole warps (256 of 257 at n_fft = 512), each
-// thread with re/im accumulators for all 32 frames in registers: every basis
-// element read (coalesced across the warp, L2 resident across blocks) feeds
-// 32 FMAs, and the samples are 16-byte shared-memory broadcasts. The bins
-// past the last whole warp (the Nyquist bin at n_fft = 512) are warp dot
-// products, so no warp runs the DFT loop for one live lane. 256 threads and
-// at most 128 registers a thread keep two blocks on every SM. Frames are
-// staged in chunks of at most kChunk samples, so any frame size fits in
-// shared memory (a frame that is not a multiple of 4 is zero-padded in the
-// tile and its basis reads are guarded). The power rows stay in shared memory
-// for the mel and entropy stages.
+// Two kernels, chosen by the wrapper from the geometry alone:
+//
+// 1. `sspv_frame_features_fft`, the main route: the spectrum is the real FFT
+//    (fft.cuh) of the windowed frame at N = n_fft, a power of two in
+//    256..2048 that is no shorter than the frame.
+//    What bounds it on the H100: the frames are read once (0.6 GB per hour of
+//    audio at 400/160, 0.18 ms of HBM) and the FFT needs 11.5 kFLOP per
+//    frame at N = 512, so device memory bounds the function; what bounds this
+//    design is the shared-memory traffic of the FFT's three stages (about
+//    12 KB read and written per frame) and the instruction count of the
+//    tail, far below the 0.41 MFLOP per frame of the dense product.
+//    What the design does about it: one frame per warp, eight warps per
+//    block and a grid-stride loop over frames, so a frame's arithmetic never
+//    depends on where it sits; the windowed samples go from device memory
+//    (16 bytes a lane where the frame allows) through registers, where the
+//    energy and the sign changes are taken, into the packed FFT buffer; the
+//    power row replaces the FFT's free buffer; the mel stage sums each filter
+//    over its nonzero bins only (ranges from the host), about 2 * n_bins
+//    multiply-adds per frame instead of n_bins * num_filters.
+// 2. `sspv_frame_features`, the dense route for every other geometry
+//    (arbitrary bases, an odd or non-power-of-two n_fft, n_fft outside
+//    256..2048, a frame longer than n_fft): the power from the windowed DFT
+//    pair re = x . wc[:, k], im = x . ws[:, k] as fp32 FMAs.
+//    What bounds it: the DFT pair, 2 * 2 * frame * n_bins flop per frame
+//    (0.41 MFLOP at 400 x 257), outside the tensor cores (67 TFLOP/s peak).
+//    What the design does about it: 32 frames per block and one thread per
+//    bin for the bins that fill whole warps, each thread with re/im
+//    accumulators for all 32 frames in registers: every basis element read
+//    (coalesced across the warp, L2 resident across blocks) feeds 32 FMAs,
+//    and the samples are 16-byte shared-memory broadcasts. The bins past the
+//    last whole warp are warp dot products. 256 threads and at most 128
+//    registers a thread keep two blocks on every SM. Frames are staged in
+//    chunks of at most kChunk samples, so any frame size fits in shared
+//    memory.
 // Everything is IEEE fp32 (no fast-math): logf, the divisions and the
 // entropy's x log x match the PyTorch version to rounding.
 
+#include "fft.cuh"
 #include "view_common.cuh"
 
 namespace {
@@ -276,4 +292,154 @@ extern "C" int sspv_frame_features(
       frames, n_frames, frame, window, wc, ws, n_bins, fb_t, num_filters, dct,
       lifter, num_ceps, log_bins, compute_entropy, energy, zcr, entropy, mfcc);
   return (int)cudaGetLastError();
+}
+
+// -- the FFT route ------------------------------------------------------------
+
+namespace {
+
+constexpr int kFftWarps = 8;
+
+// Floats of a block's shared memory: the table, then per warp the two FFT
+// buffers and the log-mel row.
+template <int N>
+constexpr size_t fft_route_floats(int num_filters) {
+  return (size_t)sspv::round4(sspv::fft::table_floats(N)) +
+         (size_t)kFftWarps *
+             (sspv::fft::work_floats(N) + sspv::round4(num_filters));
+}
+
+template <int N, bool VEC>
+__global__ void __launch_bounds__(kFftWarps * 32) frame_features_fft_kernel(
+    const float* __restrict__ frames, int n_frames, int frame,
+    const float* __restrict__ window, const float* __restrict__ table,
+    const float* __restrict__ fb_t, const int* __restrict__ mel_ranges,
+    int num_filters, const float* __restrict__ dct,
+    const float* __restrict__ lifter, int num_ceps, float log_bins,
+    int compute_entropy, float* __restrict__ energy, float* __restrict__ zcr,
+    float* __restrict__ entropy, float* __restrict__ mfcc) {
+  namespace fft = sspv::fft;
+  constexpr int M = N / 2, n_bins = M + 1;
+  extern __shared__ float4 smem4[];
+  float* tw = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* buf_a = tw + sspv::round4(fft::table_floats(N)) +
+                 warp * (fft::work_floats(N) + sspv::round4(num_filters));
+  float* buf_b = buf_a + N;
+  float* logmel = buf_b + N;
+
+  fft::load_table<N>(table, tw);
+  __syncthreads();
+
+  for (int f = blockIdx.x * kFftWarps + warp; f < n_frames;
+       f += gridDim.x * kFftWarps) {
+    float e = 0.f;
+    int changes = 0;
+    fft::pack_frame<N, true, VEC>(frames + (size_t)f * frame, frame, window,
+                                  buf_a, lane, e, changes);
+    e = sspv::warp_sum(e);
+    changes = sspv::warp_sum(changes);
+    __syncwarp();
+    float* cur = buf_a;
+    float* other = buf_b;
+    fft::fft_stages<N>(cur, other, tw + fft::untangle_floats(N), lane);
+    float* power = other;  // n_bins floats over the free buffer
+    fft::untangle<N>(cur, tw, lane, [power](int k, float re, float im) {
+      power[k] = re * re + im * im;
+    });
+    __syncwarp();
+
+    // Mel filterbank over each filter's nonzero bins -> clamp -> log.
+    for (int m = lane; m < num_filters; m += 32) {
+      const int lo = __ldg(mel_ranges + 2 * m);
+      const int hi = __ldg(mel_ranges + 2 * m + 1);
+      float acc = 0.f;
+      for (int k = lo; k < hi; ++k)
+        acc = fmaf(power[k], __ldg(fb_t + k * num_filters + m), acc);
+      logmel[m] = logf(fmaxf(acc, 1e-10f));
+    }
+
+    // Spectral entropy over the n_bins bins (zeros when the wrapper computes
+    // it from a separate spectrum).
+    float h = 0.f;
+    if (compute_entropy) {
+      float s = 0.f;
+      for (int k = lane; k < n_bins; k += 32) s += power[k];
+      s = sspv::warp_sum(s);
+      for (int k = lane; k < n_bins; k += 32) {
+        const float pn = fmaxf(s > 0.f ? power[k] / s : 0.f, 1e-12f);
+        h += pn * logf(pn);
+      }
+      h = sspv::warp_sum(h);
+    }
+    if (lane == 0) {
+      energy[f] = e;
+      zcr[f] = (float)changes * (1.f / (float)frame);
+      entropy[f] = compute_entropy ? -h / log_bins : 0.f;
+    }
+    __syncwarp();
+
+    // DCT -> lifter, one lane per coefficient.
+    for (int c = lane; c < num_ceps; c += 32) {
+      float acc = 0.f;
+      for (int m = 0; m < num_filters; ++m)
+        acc = fmaf(logmel[m], __ldg(dct + m * num_ceps + c), acc);
+      mfcc[(size_t)f * num_ceps + c] = acc * __ldg(lifter + c);
+    }
+    __syncwarp();  // the next frame overwrites the buffers and the log-mel row
+  }
+}
+
+template <int N, bool VEC>
+int launch_fft_route(const float* frames, int n_frames, int frame,
+                     const float* window, const float* table,
+                     const float* fb_t, const int* mel_ranges, int num_filters,
+                     const float* dct, const float* lifter, int num_ceps,
+                     float log_bins, int compute_entropy, float* energy,
+                     float* zcr, float* entropy, float* mfcc,
+                     cudaStream_t stream) {
+  const size_t smem = sizeof(float) * fft_route_floats<N>(num_filters);
+  auto kernel = frame_features_fft_kernel<N, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = sspv::fft::grid_blocks(n_frames, kFftWarps);
+  kernel<<<blocks, kFftWarps * 32, smem, stream>>>(
+      frames, n_frames, frame, window, table, fb_t, mel_ranges, num_filters,
+      dct, lifter, num_ceps, log_bins, compute_entropy, energy, zcr, entropy,
+      mfcc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The FFT route: `n_fft` in {256, 512, 1024, 2048}, frame <= n_fft, `table`
+// the twiddle table of n_fft, `fb_t` (n_fft / 2 + 1, num_filters) and
+// `mel_ranges` (num_filters, 2) the [start, end) bins of each filter's
+// nonzeros. Returns the CUDA error of the launch (0 on success,
+// cudaErrorInvalidValue for a geometry it does not take).
+extern "C" int sspv_frame_features_fft(
+    const float* frames, int n_frames, int frame, const float* window,
+    const float* table, int n_fft, const float* fb_t, const int* mel_ranges,
+    int num_filters, const float* dct, const float* lifter, int num_ceps,
+    float log_bins, int compute_entropy, float* energy, float* zcr,
+    float* entropy, float* mfcc, void* stream) {
+  if (frame > n_fft) return (int)cudaErrorInvalidValue;
+  const bool vec = frame % 4 == 0 && sspv::fft::aligned16(frames) &&
+                   sspv::fft::aligned16(window);
+#define SSPV_FFT_ROUTE(N)                                                     \
+  case N:                                                                     \
+    return (vec ? launch_fft_route<N, true> : launch_fft_route<N, false>)(    \
+        frames, n_frames, frame, window, table, fb_t, mel_ranges,             \
+        num_filters, dct, lifter, num_ceps, log_bins, compute_entropy,        \
+        energy, zcr, entropy, mfcc, (cudaStream_t)stream);
+  switch (n_fft) {
+    SSPV_FFT_ROUTE(256)
+    SSPV_FFT_ROUTE(512)
+    SSPV_FFT_ROUTE(1024)
+    SSPV_FFT_ROUTE(2048)
+  }
+#undef SSPV_FFT_ROUTE
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,10 @@
-// Device code shared by the two signal-view kernels (view_features.cu,
-// view_pitch.cu).
+// Device code shared by the kernels: the small helpers every kernel uses
+// (round4, warp_sum, sign_of), and the rows-view tile and the dense DFT of
+// view_features.cu (K1). K2 (view_pitch.cu) and K3's main route compute
+// their spectra with fft.cuh instead and read a frame's 2 * hop samples
+// straight from the rows view, where they lie side by side.
 //
-// The input of both is the (n_frames + 1, hop) rows view of a 16 kHz signal
+// K1's input is the (n_frames + 1, hop) rows view of a 16 kHz signal
 // with frame_size == 2 * hop: frame i is rows[i] || rows[i + 1]. The rows of
 // one thread block sit in shared memory, row r at r * row_stride(hop), and
 // frame f of the block is rows f and f + 1 of that tile; the 2x-overlapping
@@ -70,12 +73,6 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ rows,
       tile[i] = r <= nb && j < hop ? __ldg(src + r * hop + j) : 0.f;
     }
   }
-}
-
-// Sample t (0 <= t < 2 * hop) of the frame whose first row starts at `x` in
-// the tile.
-__device__ __forceinline__ float frame_sample(const float* x, int t, int hop) {
-  return t < hop ? x[t] : x[row_stride(hop) + t - hop];
 }
 
 // re/im[f] += the products of samples [0, n) of row f of `rows` (rows

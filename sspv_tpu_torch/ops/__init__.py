@@ -23,7 +23,7 @@ from .vad import (
     vad_state_to_numpy,
 )
 from .view_kernels import LAUNCHES, fused_view_features, fused_view_pitch
-from .frame_kernels import fused_features
+from .frame_kernels import ROUTES, fused_features
 from .preprocessing import frame_signal, num_frames_for, stream_frames
 from .time_features import autocorrelation_via_dft
 from .pitch import (
@@ -53,6 +53,7 @@ __all__ = [
     "vad_state_from_numpy",
     "vad_state_to_numpy",
     "LAUNCHES",
+    "ROUTES",
     "fused_view_features",
     "fused_view_pitch",
     "fused_features",

@@ -1,11 +1,12 @@
 """Build, load and check the port's CUDA kernels.
 
 The sources under ``sspv_tpu_torch/csrc/`` compile with ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which
-``ctypes`` loads. The library lands in ``build/kernels/`` at the repo root,
-named by a hash of the sources and flags, so the first use after a source
-change rebuilds it and every later use loads it. Nothing here runs at import
-time: the CPU-only test environment imports this module without ``nvcc``.
+(``sm_90a``), one ``nvcc`` per ``.cu`` file and all at once, and link into
+ONE shared library with a plain C interface, which ``ctypes`` loads. The
+library lands in ``build/kernels/`` at the repo root, named by a hash of the
+sources and flags, so the first use after a source change rebuilds it and
+every later use loads it. Nothing here runs at import time: the CPU-only
+test environment imports this module without ``nvcc``.
 
 Every C entry point returns the ``cudaGetLastError()`` value from right after
 its launch; :func:`check` turns a non-zero value into an exception (a refused
@@ -19,9 +20,11 @@ import hashlib
 import os
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "LAUNCHES", "NVCC_FLAGS", "build", "check", "library"]
+__all__ = ["BUILD_DIR", "LAUNCHES", "NVCC_FLAGS", "ROUTES", "build", "check",
+           "library"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -29,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # IEEE, or ZCR, entropy and the F0 picks drift from the PyTorch versions.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -37,6 +40,9 @@ NVCC_FLAGS = (
 # where it launches its kernel and nowhere else, so a caller can show that
 # a run went through the kernels.
 LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0}
+# Launches of K3 by route ("fft": the shared-memory FFT kernel, "dense": the
+# DFT-pair kernel); they add up to LAUNCHES["frame_features"].
+ROUTES = {"frame_features_fft": 0, "frame_features_dense": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -64,15 +70,29 @@ def build() -> tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sources if p.suffix == ".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {res.returncode}:\n{res.stdout}{res.stderr}"
-        )
+    nvcc = _nvcc()
+
+    def run(cmd: list) -> str:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
+                               f"{res.stdout}{res.stderr}")
+        return res.stdout + res.stderr
+
+    units = [p for p in sources if p.suffix == ".cu"]
+    objects = [f"{tmp}.{p.stem}.o" for p in units]
+    try:
+        with ThreadPoolExecutor(len(units)) as pool:
+            logs = list(pool.map(
+                lambda po: run([nvcc, *NVCC_FLAGS, "-c", str(po[0]), "-o",
+                                po[1]]), zip(units, objects)))
+        logs.append(run([nvcc, "-shared", "-o", str(tmp), *objects]))
+    finally:
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)  # atomic: a concurrent process loads a whole file
-    return out, res.stdout + res.stderr
+    return out, "".join(logs)
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -81,14 +101,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, i, p, p, p, i, p, i, p, p, i, f, p, p, p, p, p,
     ]
     lib.sspv_view_features.restype = i
-    lib.sspv_view_pitch.argtypes = [
-        p, i, i, p, p, i, p, p, i, i, i, f, p, p, p,
-    ]
+    lib.sspv_view_pitch.argtypes = [p, i, i, p, i, i, i, f, p, p, p]
     lib.sspv_view_pitch.restype = i
     lib.sspv_frame_features.argtypes = [
         p, i, i, p, p, p, i, p, i, p, p, i, f, i, p, p, p, p, p,
     ]
     lib.sspv_frame_features.restype = i
+    lib.sspv_frame_features_fft.argtypes = [
+        p, i, i, p, p, i, p, p, i, p, p, i, f, i, p, p, p, p, p,
+    ]
+    lib.sspv_frame_features_fft.restype = i
     lib.sspv_error_string.argtypes = [i]
     lib.sspv_error_string.restype = ctypes.c_char_p
     return lib

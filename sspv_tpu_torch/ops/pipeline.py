@@ -33,7 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import bases
+from . import bases, fft_tables
 from . import vad as vad_ops
 from .frame_kernels import fused_features
 from .pitch import _lag_band, acf_bases, pitch_track_gated, pitch_track_signal_gated
@@ -215,6 +215,8 @@ class FeaturePipeline:
         consts["dct"] = bases.dct_ortho_matrix(c.num_filters, c.num_ceps)
         consts["lifter"] = bases.lifter_vector(c.num_ceps, c.lifter)
         self._wm = self._wnyq = self._wc_ent = self._ws_ent = None
+        # host copies of what chooses and feeds K3's FFT route
+        self._host_consts = dict.fromkeys(("window", "wc", "ws", "fb_t"))
         self._acf: dict[int, tuple] = {}
         self.load_constants(consts)
 
@@ -231,6 +233,8 @@ class FeaturePipeline:
         for k in FEATURE_CONSTANTS:
             if consts.get(k) is not None:
                 setattr(self, "_" + k, self._tensor(consts[k]))
+                if k in self._host_consts:
+                    self._host_consts[k] = np.asarray(consts[k], np.float32)
         if all(k in consts for k in ACF_CONSTANTS):
             acf = tuple(self._tensor(consts[k]) for k in ACF_CONSTANTS)
             self._acf[acf[2].shape[1] - 1] = acf
@@ -238,6 +242,9 @@ class FeaturePipeline:
             window=self._window, wc=self._wc, ws=self._ws, fb_t=self._fb_t,
             dct=self._dct, lifter=self._lifter,
             entropy_bases=(self._wc_ent, self._ws_ent),
+            n_fft=self._standard_n_fft(),
+            mel_ranges=torch.from_numpy(fft_tables.mel_ranges(
+                self._host_consts["fb_t"])).to(self.device),
         )
         self._view_consts = None
         if self._wm is not None:
@@ -245,6 +252,19 @@ class FeaturePipeline:
                 w2=self._window * self._window, wm=self._wm, wnyq=self._wnyq,
                 fb_t=self._fb_t, dct=self._dct, lifter=self._lifter,
             )
+
+    def _standard_n_fft(self) -> int | None:
+        """``cfg.n_fft`` if the loaded window and DFT pair are the ones this
+        configuration builds (so the frames kernel may compute the same
+        spectrum by an FFT), None for any other bases."""
+        c = self.cfg
+        wc, ws = bases.windowed_dft_bases(c.frame_size, c.n_fft, c.window_type)
+        want = {"window": get_window(c.window_type, c.frame_size), "wc": wc,
+                "ws": ws}
+        same = all(np.array_equal(self._host_consts[k],
+                                  np.asarray(v, np.float32))
+                   for k, v in want.items())
+        return c.n_fft if same else None
 
     def constants(self) -> dict:
         """The pipeline's bases as NumPy arrays, with the ACF bases of the

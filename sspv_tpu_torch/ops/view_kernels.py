@@ -8,8 +8,12 @@ Counterpart of ``sspv_tpu/ops/pallas_view.py``. Both kernels take the
 - ``fused_view_features`` (K1, ``csrc/view_features.cu``): energy, zcr,
   entropy ``(F,)`` and mfcc ``(F, num_ceps)``;
 - ``fused_view_pitch`` (K2, ``csrc/view_pitch.cu``): the ungated banded-ACF
-  ``(f0, conf)``, ``(F,)`` each, at any hop (float4 row reads where
-  hop % 4 == 0, one float at a time otherwise).
+  ``(f0, conf)``, ``(F,)`` each, at any hop (16-byte reads where
+  hop % 4 == 0, one float at a time otherwise). The kernel computes the
+  linear ACF with two shared-memory real FFTs of
+  ``fft_tables.acf_fft_size(frame, n_lags)`` points (1024 at 320/160) from a
+  host-built twiddle table; the dense ACF bases are the plain version's
+  inputs only.
 
 Each wrapper dispatches on the device of ``rows``: a CUDA tensor launches the
 hand-written kernel (or raises), a CPU tensor runs the plain version. There
@@ -22,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, fft_tables
 from ._build import LAUNCHES
 from .frequency_features import spectral_tail
 
@@ -145,11 +149,11 @@ def _check_rows(rows: torch.Tensor) -> torch.Tensor:
     return rows
 
 
-def _on(device: torch.device, name: str, t: torch.Tensor,
-        shape: tuple) -> torch.Tensor:
-    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+def _on(device: torch.device, name: str, t: torch.Tensor, shape: tuple,
+        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(
-            f"{name} must be float32 {shape} on {device}, got "
+            f"{name} must be {dtype} {shape} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device}"
         )
     return t.contiguous()
@@ -213,7 +217,10 @@ def fused_view_pitch(rows, *, merged, nyq_b, inv_live, inv_nyq, lag_min: int,
                      lag_max: int, sample_rate: int):
     """Ungated banded-ACF pitch of a ``(F+1, hop)`` rows view: ``(f0, conf)``
     of shape ``(F,)`` each. The bases come from
-    ``time_features._acf_dft_bases_merged``, on the device of ``rows``."""
+    ``time_features._acf_dft_bases_merged``, on the device of ``rows``: the
+    plain version multiplies by them; the kernel takes only their geometry
+    (the frame size and the number of lags) and a twiddle table. A geometry
+    whose transform would pass the largest FFT size raises."""
     if rows.device.type == "cpu":
         return view_pitch_plain(rows, merged=merged, nyq_b=nyq_b,
                                 inv_live=inv_live, inv_nyq=inv_nyq,
@@ -224,23 +231,24 @@ def fused_view_pitch(rows, *, merged, nyq_b, inv_live, inv_nyq, lag_min: int,
     rows = _check_rows(rows)
     dev = rows.device
     f, hop = rows.shape[0] - 1, rows.shape[1]
-    frame, nfft = 2 * hop, merged.shape[1]
-    half, n_lags = nfft // 2, inv_live.shape[1]
-    if nfft % 8 or not 0 <= lag_min <= lag_max < n_lags:
-        raise ValueError(f"bad ACF geometry: nfft={nfft}, n_lags={n_lags}, "
+    frame, n_lags = 2 * hop, inv_live.shape[1]
+    if merged.shape[0] != frame or not 0 <= lag_min <= lag_max < n_lags:
+        raise ValueError(f"bad ACF geometry: bases of {merged.shape[0]} "
+                         f"samples for frames of {frame}, n_lags={n_lags}, "
                          f"band=[{lag_min}, {lag_max}]")
-    merged = _on(dev, "merged", merged, (frame, nfft))
-    nyq_b = _on(dev, "nyq_b", nyq_b, (frame,))
-    inv_live = _on(dev, "inv_live", inv_live, (half, n_lags))
-    inv_nyq = _on(dev, "inv_nyq", inv_nyq, (n_lags,))
+    n_fft = fft_tables.acf_fft_size(frame, n_lags)
+    if n_fft is None:
+        raise NotImplementedError(
+            f"the view_pitch kernel takes frame + n_lags - 1 <= "
+            f"{fft_tables.FFT_SIZES[-1]}, got frame={frame}, n_lags={n_lags}")
+    table = fft_tables.device_twiddles(n_fft, dev)
     f0 = torch.empty(f, device=dev)
     conf = torch.empty(f, device=dev)
     if f:
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.sspv_view_pitch(
-                rows.data_ptr(), f, hop, merged.data_ptr(), nyq_b.data_ptr(),
-                nfft, inv_live.data_ptr(), inv_nyq.data_ptr(), n_lags,
+                rows.data_ptr(), f, hop, table.data_ptr(), n_fft,
                 int(lag_min), int(lag_max), float(sample_rate),
                 f0.data_ptr(), conf.data_ptr(), _stream(dev),
             )

@@ -119,6 +119,16 @@ def test_build_recipe():
         assert f"Replaces: sspv_tpu/ops/{tpu}" in src
         assert "What bounds it on the H100" in src
         assert 'extern "C" int sspv_' in src
+    # K3's FFT route and K2 share the device FFT, whose twiddles come from the
+    # host-built table: no sine or cosine is computed in any kernel
+    csrc = REPO / "sspv_tpu_torch" / "csrc"
+    for name in ("frame_features.cu", "view_pitch.cu"):
+        assert '#include "fft.cuh"' in (csrc / name).read_text()
+    for path in csrc.iterdir():
+        code = "\n".join(line.split("//")[0]
+                         for line in path.read_text().splitlines())
+        assert "sincos" not in code and "cosf(" not in code \
+            and "sinf(" not in code, path.name
 
 
 @pytest.mark.cuda
@@ -186,10 +196,11 @@ def _frame_consts(dev, frame: int, window: str = "hamming",
 
 
 # (frame_size, window, entropy_n_fft, n_fft): the engine's and the ASR front
-# end's framing, a window with zeros, a separate entropy spectrum, a frame
-# longer than K3's shared-memory chunk with a scalar tail (1030 % 4 == 2),
-# two thread-per-bin passes and a tail bin (513 bins), and tail bins only
-# (17 bins).
+# end's framing, a window with zeros, a separate entropy spectrum (all on
+# K3's FFT route at N = 512), a frame longer than n_fft and than the dense
+# kernel's shared-memory chunk with a scalar tail (1030 % 4 == 2; dense
+# route), the FFT route at N = 1024 (513 bins), and the dense route with
+# tail bins only (17 bins).
 K3_CASES = {
     "hamming_320": (320, "hamming", 512, 512),
     "hamming_400": (400, "hamming", 512, 512),
@@ -221,6 +232,68 @@ def test_frame_kernel_matches_plain_version(case, n):
     assert torch.equal(got["zcr"], want["zcr"])
     for k in ("energy", "entropy", "mfcc"):
         assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
+
+
+# K3's two kernels: (frame_size, n_fft, the route the wrapper must take)
+K3_ROUTES = {
+    "fft_400_of_512": (400, 512, "fft"),
+    "fft_322_of_512_one_float_reads": (322, 512, "fft"),
+    "fft_200_of_256": (200, 256, "fft"),
+    "fft_1500_of_2048": (1500, 2048, "fft"),
+    "dense_odd_n_fft": (400, 511, "dense"),
+    "dense_n_fft_480": (400, 480, "dense"),
+    "dense_frame_longer_than_n_fft": (1030, 512, "dense"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K3_ROUTES))
+def test_frame_kernel_routes(case):
+    """Each geometry launches the K3 kernel the wrapper chose for it, once,
+    and that kernel equals the plain version."""
+    dev = _device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frame, n_fft, route = K3_ROUTES[case]
+    consts = _frame_consts(dev, frame, "hamming", n_fft, n_fft)
+    assert fk.kernel_route(frame, n_fft // 2 + 1, consts["n_fft"]) == route
+    frames = torch.from_numpy(
+        np.random.default_rng(frame).normal(0, 1000, (300, frame))
+        .astype(np.float32)).to(dev)
+    before = dict(fk.ROUTES)
+    got = fk.fused_features(frames, **consts)
+    torch.cuda.synchronize()
+    other = "dense" if route == "fft" else "fft"
+    assert fk.ROUTES["frame_features_" + route] == \
+        before["frame_features_" + route] + 1
+    assert fk.ROUTES["frame_features_" + other] == \
+        before["frame_features_" + other]
+    want = fk.frame_features_plain(frames, **consts)
+    assert torch.equal(got["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
+    # the same bases without the pipeline's word for them: the dense kernel
+    unvouched = fk.fused_features(frames, **dict(consts, n_fft=None))
+    assert fk.ROUTES["frame_features_dense"] == \
+        before["frame_features_dense"] + 1 + (route == "dense")
+    assert torch.equal(unvouched["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(unvouched[k].cpu(), want[k].cpu()) <= 1e-9, k
+
+
+@pytest.mark.cuda
+def test_pitch_kernel_refuses_a_transform_past_the_largest():
+    """frame + n_lags - 1 > 2048 has no FFT size: K2 raises (no dense
+    second route, no quiet plain run)."""
+    dev = _device("cuda")
+    pipe = FeaturePipeline(FeatureConfig(frame_size=2048, hop_size=1024,
+                                         n_fft=2048, entropy_n_fft=2048),
+                           device=dev)
+    merged, nyq_b, inv_live, inv_nyq = pipe._acf_bases(320)
+    rows = torch.zeros((4, 1024), device=dev)
+    with pytest.raises(NotImplementedError):
+        vk.fused_view_pitch(rows, merged=merged, nyq_b=nyq_b,
+                            inv_live=inv_live, inv_nyq=inv_nyq, lag_min=40,
+                            lag_max=320, sample_rate=16000)
 
 
 @pytest.mark.cuda

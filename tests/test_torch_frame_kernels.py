@@ -170,3 +170,75 @@ def test_plain_blocks_equal_one_block(pipes):
     assert torch.equal(many["zcr"], one["zcr"])
     for k in ("energy", "entropy", "mfcc"):
         assert _nmse(many[k], one[k]) <= 1e-12, k
+
+
+# -- which K3 kernel a CUDA tensor would take ---------------------------------
+
+ROUTE_CASES = {
+    "engine_320_of_512": (dict(frame_size=320, hop_size=160), "fft"),
+    "asr_400_of_512": (dict(frame_size=400, hop_size=160), "fft"),
+    "hann_400_of_512": (dict(frame_size=400, hop_size=160,
+                             window_type="hanning"), "fft"),
+    "odd_frame_322_of_512": (dict(frame_size=322, hop_size=161), "fft"),
+    "n_fft_256": (dict(frame_size=200, hop_size=80, n_fft=256,
+                       entropy_n_fft=256), "fft"),
+    "n_fft_2048": (dict(frame_size=1500, hop_size=500, n_fft=2048,
+                        entropy_n_fft=2048), "fft"),
+    "separate_entropy": (dict(frame_size=400, hop_size=160,
+                              entropy_n_fft=1024), "fft"),
+    "odd_n_fft": (dict(n_fft=511, entropy_n_fft=511), "dense"),
+    "n_fft_not_power_of_two": (dict(frame_size=400, hop_size=160, n_fft=480,
+                                    entropy_n_fft=480), "dense"),
+    "frame_longer_than_n_fft": (dict(frame_size=1030, hop_size=515), "dense"),
+    "n_fft_below_smallest": (dict(frame_size=64, hop_size=32, n_fft=128,
+                                  entropy_n_fft=128), "dense"),
+    "n_fft_above_largest": (dict(frame_size=400, hop_size=160, n_fft=4096,
+                                 entropy_n_fft=4096), "dense"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_kernel_route_by_geometry(case):
+    """The wrapper's route is a function of the geometry the pipeline
+    states: power-of-two standard bases no shorter than the frame take the
+    FFT kernel, everything else the dense one."""
+    geometry, want = ROUTE_CASES[case]
+    tp = TPipeline(TConfig(**geometry), device="cpu")
+    consts = tp._frame_consts
+    assert consts["n_fft"] == tp.cfg.n_fft  # the pipeline built these bases
+    assert fk.kernel_route(tp.cfg.frame_size, consts["fb_t"].shape[0],
+                           consts["n_fft"]) == want
+    ranges = consts["mel_ranges"]
+    assert ranges.dtype == torch.int32
+    assert ranges.shape == (tp.cfg.num_filters, 2)
+
+
+def test_arbitrary_bases_take_the_dense_route():
+    """Bases the pipeline did not build (here: a DFT pair with another
+    window folded in) are not vouched for, so no FFT stands in for them;
+    loading the pipeline's own bases back restores the FFT route."""
+    tp = TPipeline(TConfig(frame_size=400, hop_size=160), device="cpu")
+    own = tp.constants()
+    other = TPipeline(TConfig(frame_size=400, hop_size=160,
+                              window_type="hanning"), device="cpu").constants()
+    tp.load_constants({"wc": other["wc"], "ws": other["ws"]})
+    assert tp._frame_consts["n_fft"] is None
+    assert fk.kernel_route(400, 257, tp._frame_consts["n_fft"]) == "dense"
+    tp.load_constants({"window": other["window"]})  # now Hann throughout,
+    assert tp._frame_consts["n_fft"] is None        # but the config says Hamming
+    tp.load_constants(own)
+    assert tp._frame_consts["n_fft"] == 512
+    # a filterbank of another size than n_fft // 2 + 1 bins never takes the FFT
+    assert fk.kernel_route(400, 200, 512) == "dense"
+
+
+def test_cpu_frames_launch_no_kernel_on_either_route():
+    tp = TPipeline(TConfig(frame_size=400, hop_size=160), device="cpu")
+    before = dict(fk.LAUNCHES), dict(fk.ROUTES)
+    frames = torch.from_numpy(_frames(9, 400, seed=0))
+    with_fft = fk.fused_features(frames, **tp._frame_consts)
+    dense = dict(tp._frame_consts, n_fft=None, mel_ranges=None)
+    without = fk.fused_features(frames, **dense)
+    assert (dict(fk.LAUNCHES), dict(fk.ROUTES)) == before
+    for k in with_fft:  # the plain version reads neither keyword
+        assert torch.equal(with_fft[k], without[k])
