@@ -43,10 +43,13 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    once per shard, give features, VAD, F0 and confidence bit-identical to
    ``process_signal_device`` and ``pitch_track_signal`` on the card, and
    each shard's kernel must equal its plain version on its input;
-   then, at 322/161 (hop % 4 != 0, which K1 does not take), holds K2 against
-   its plain version on random rows and runs ``process_signal_pitch_auto``
-   on the clip: K3 for the features and K2 for the pitch, each K2 input held
-   to the plain version and the outputs to the same call on the CPU;
+   then, at 322/161 (hop % 4 != 0: one-float loads), holds K1 and K2
+   against their plain versions on random rows and runs
+   ``process_signal_pitch_auto`` on the clip: K1 for the features and K2 for
+   the pitch, each kernel input held to the plain version and the outputs
+   to the same call on the CPU; and at 320/160 with ``n_fft`` 640 (even, no
+   power of two: a view geometry K1's FFT does not serve) the same call
+   takes K3's dense route for the features and K2 for the pitch;
 8. runs the corpus CLI's ``process_corpus`` (batch 8) over 44 WAV files of
    1.5 s to 600 s cut from the same audio (every length bucket) and one
    2,100 s file (the oversized branch), once without and once with pitch,
@@ -59,8 +62,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    device and write time;
 9. times each kernel against its plain version at its main path's shape,
    and the end-to-end calls, with CUDA events (median of 10 calls each;
-   beside K3 and K2 the FFT stage alone through ``torch.fft``, a yardstick
-   the port never calls):
+   beside K1, K3 and K2 the FFT stage alone through ``torch.fft``, a
+   yardstick the port never calls), K1 and K2 also at 322/161:
    the view and frames paths, ``process_long(_pitch)`` per mesh, and
    ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
    its K3 launch and per-row VAD loop apart; and the engine's
@@ -68,10 +71,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 10. bounds each kernel by the least work of its function: the operations
     of the features or ACF computed with real FFTs and a sparse mel
     filterbank, or the bytes it must move, whichever takes longer; it also
-    prints the bound of the kernels' own design: for K1 the DFT as a dense
-    fp32 GEMM, for K3 and K2 the same FFT operations and bytes plus the
-    shared-memory traffic of their stages. The mesh wrappers' bounds are
-    K1's and K2's at the same shape.
+    prints the bound of the kernels' own design: the same FFT operations
+    and bytes or the shared-memory traffic of their stages and tails,
+    whichever is larger. The mesh wrappers' bounds are K1's and K2's at
+    the same shape.
 
 Any failed check raises. The last lines are the card, one JSON object with
 every kernel's launches, error, times and bound, and the
@@ -108,7 +111,8 @@ FRAME_KERNEL_CASES = ((320, "hamming", 512, 512, "fft"),
                       (400, "hamming", 511, 511, "dense"),
                       (400, "hamming", 480, 480, "dense"))
 ASR_FRAME, HOP = 400, 160  # the offline frames path's 25 ms / 10 ms framing
-GAP_FRAME, GAP_HOP = 322, 161  # a view geometry K1 does not take (hop % 4)
+GAP_FRAME, GAP_HOP = 322, 161  # a view geometry with one-float loads (hop % 4)
+GAP_N_FFT = 640  # a view geometry K1 does not take: even, no power of two
 ENGINE_SECONDS = 600
 PITCH_ENGINE_SECONDS = 30
 LONG_SHARDS = (1, 4)  # process_long's meshes: one card, the card four times
@@ -688,43 +692,24 @@ def long_runs(pipe, device, rows, err: dict) -> dict:
     return out
 
 
-def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
-    """The view geometry 322/161, which K1 does not take (hop % 4 != 0): the
-    view routes run K3 on the frames formed on the card, and K2 takes the
-    pitch with one-float sample reads. K2 against its plain version on
-    random rows and on every input ``process_signal_pitch_auto`` gave it
-    on a clip, the clip's outputs against the same call on the CPU (the
-    plain versions), and K2's time at one hour's rows."""
-    import torch
+def clip_against_cpu(pipe, cfg, clip: np.ndarray, label: str,
+                     records: list) -> dict:
+    """``process_signal_pitch_auto`` on the clip on the card, its launches,
+    and its outputs against the same call on the CPU (the plain versions).
+    ``records`` lists ``recording`` targets, one list per kernel; the
+    recorded calls come back under ``"calls"``, in that order."""
+    from sspv_tpu_torch import FeaturePipeline
+    from sspv_tpu_torch.ops import LAUNCHES, ROUTES
 
-    from sspv_tpu_torch import FeatureConfig, FeaturePipeline
-    from sspv_tpu_torch.ops import LAUNCHES
-    from sspv_tpu_torch.ops import pitch as pitch_mod
-    from sspv_tpu_torch.ops import view_kernels as vk
-
-    cfg = FeatureConfig(frame_size=GAP_FRAME, hop_size=GAP_HOP)
-    pipe = FeaturePipeline(cfg, device=device)
-    pkw = pitch_kernel_kwargs(pipe)
-    for rows in random_rows(device, KERNEL_SIZES, seed=5, hop=GAP_HOP):
-        match, e = pitch_parity(rows, pkw, err)
-        n = rows.shape[0] - 1
-        print(f"K2 vs plain at {GAP_FRAME}/{GAP_HOP} n={n}: f0_match={match}"
-              f" conf_nmse={e}")
-        require(match >= F0_MATCH, f"K2 f0 match {match} at hop {GAP_HOP}")
-        require(e <= NMSE_KERNEL, f"K2 conf nmse {e} at hop {GAP_HOP}")
-    clip = sig[: CLIP_SECONDS * SR]
-    with recording([(pitch_mod, "fused_view_pitch")]) as calls:
-        sync(device)
+    with contextlib.ExitStack() as stack:
+        calls = [stack.enter_context(recording(t)) for t in records]
+        sync(pipe.device)
         reset_launches()
         block, _, f0, conf = pipe.process_signal_pitch_auto(clip)
-        sync(device)
-        launches = dict(LAUNCHES)
-    print(f"{GAP_FRAME}/{GAP_HOP} process_signal_pitch_auto launches "
-          + json.dumps(launches))
-    require(launches["frame_features"] == 1 and launches["view_pitch"] == 1
-            and launches["view_features"] == 0,
-            f"{GAP_FRAME}/{GAP_HOP}: K3 for the features, K2 for the pitch")
-    calls_parity("view_pitch", calls, err, f"{GAP_FRAME}/{GAP_HOP}")
+        sync(pipe.device)
+        launches, routes = dict(LAUNCHES), dict(ROUTES)
+    print(f"{label} process_signal_pitch_auto launches "
+          + json.dumps(launches) + " K3 routes " + json.dumps(routes))
     cblock, _, cf0, cconf = FeaturePipeline(
         cfg, device="cpu").process_signal_pitch_auto(clip)
     zcr_vad = all(np.array_equal(host(getattr(block, k)), host(getattr(cblock, k)))
@@ -734,23 +719,83 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
     match = float(np.mean(f0 == cf0)) if f0.size else 1.0
     voiced = f0[f0 > 0]
     median_f0 = float(np.median(voiced)) if voiced.size else 0.0
-    print(f"{GAP_FRAME}/{GAP_HOP} clip vs CPU: zcr and vad equal {zcr_vad}, "
+    print(f"{label} clip vs CPU: zcr and vad equal {zcr_vad}, "
           f"nmse " + json.dumps(e) + f", f0 match {match}, conf nmse "
           f"{nmse(conf, cconf)}, median voiced f0 {median_f0:.3f} Hz")
-    require(zcr_vad, f"{GAP_FRAME}/{GAP_HOP} zcr and VAD equal the CPU run")
-    require(max(e.values()) <= NMSE_KERNEL, f"{GAP_FRAME}/{GAP_HOP} nmse {e}")
+    require(zcr_vad, f"{label} zcr and VAD equal the CPU run")
+    require(max(e.values()) <= NMSE_KERNEL, f"{label} nmse {e}")
     require(match >= F0_MATCH and nmse(conf, cconf) <= NMSE_KERNEL,
-            f"{GAP_FRAME}/{GAP_HOP} f0 match {match}")
-    require(abs(median_f0 - 130.0) < 5.0, "322/161 median voiced f0 near 130")
+            f"{label} f0 match {match}")
+    require(abs(median_f0 - 130.0) < 5.0, f"{label} median voiced f0 near 130")
+    return {"launches": launches, "routes": routes, "calls": calls}
+
+
+def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
+    """View geometries off the default one. At 322/161 (hop % 4 != 0) K1 and
+    K2 read one float a lane: each against its plain version on random rows
+    and on every input ``process_signal_pitch_auto`` gave it on a clip, the
+    clip's outputs against the same call on the CPU (the plain versions),
+    and both kernels' times at one hour's rows. At 320/160 with ``n_fft``
+    ``GAP_N_FFT``, which K1's FFT does not serve, the view routes run K3
+    (its dense route) on the frames formed on the card, and K2 takes the
+    pitch."""
+    import torch
+
+    from sspv_tpu_torch import FeatureConfig, FeaturePipeline
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.ops import pitch as pitch_mod
+    from sspv_tpu_torch.ops import view_kernels as vk
+
+    label = f"{GAP_FRAME}/{GAP_HOP}"
+    cfg = FeatureConfig(frame_size=GAP_FRAME, hop_size=GAP_HOP)
+    pipe = FeaturePipeline(cfg, device=device)
+    pkw = pitch_kernel_kwargs(pipe)
+    feat = pipe._view_consts
+    for rows in random_rows(device, KERNEL_SIZES, seed=5, hop=GAP_HOP):
+        zcr_equal, fe = feature_parity("view_features", rows, feat, err)
+        match, e = pitch_parity(rows, pkw, err)
+        n = rows.shape[0] - 1
+        print(f"K1 and K2 vs plain at {label} n={n}: zcr_equal={zcr_equal} "
+              f"nmse=" + json.dumps(fe) + f" f0_match={match} conf_nmse={e}")
+        require(zcr_equal, f"K1 zcr equal at hop {GAP_HOP}, n={n}")
+        require(max(fe.values()) <= NMSE_KERNEL,
+                f"K1 nmse {fe} at hop {GAP_HOP}, n={n}")
+        require(match >= F0_MATCH, f"K2 f0 match {match} at hop {GAP_HOP}")
+        require(e <= NMSE_KERNEL, f"K2 conf nmse {e} at hop {GAP_HOP}")
+    clip = sig[: CLIP_SECONDS * SR]
+    run = clip_against_cpu(
+        pipe, cfg, clip, label,
+        [[(pipeline_mod, "fused_view_features")],
+         [(pitch_mod, "fused_view_pitch")]])
+    launches = run["launches"]
+    require(launches["view_features"] == 1 and launches["view_pitch"] == 1
+            and launches["frame_features"] == 0,
+            f"{label}: K1 for the features, K2 for the pitch")
+    calls_parity("view_features", run["calls"][0], err, label)
+    calls_parity("view_pitch", run["calls"][1], err, label)
+
+    cfg640 = FeatureConfig(n_fft=GAP_N_FFT, entropy_n_fft=GAP_N_FFT)
+    label640 = f"320/160 n_fft={GAP_N_FFT}"
+    run640 = clip_against_cpu(
+        FeaturePipeline(cfg640, device=device), cfg640, clip, label640,
+        [[(pipeline_mod, "fused_features")]])
+    require(run640["launches"] == {"view_features": 0, "view_pitch": 1,
+                                   "frame_features": 1}
+            and run640["routes"]["frame_features_dense"] == 1,
+            f"{label640}: K3 (dense route) for the features, K2 for the pitch")
+    calls_parity("frame_features", run640["calls"][0], err, label640)
+
     rows = torch.from_numpy(pipe.host_rows_view(sig)).to(device)
-    samples = {"view_pitch": [], "view_pitch_plain": []}
-    runs = {"view_pitch": lambda: vk.fused_view_pitch(rows, **pkw),
+    runs = {"view_features": lambda: vk.fused_view_features(rows, **feat),
+            "view_features_plain": lambda: vk.view_features_plain(rows, **feat),
+            "view_pitch": lambda: vk.fused_view_pitch(rows, **pkw),
             "view_pitch_plain": lambda: vk.view_pitch_plain(rows, **pkw)}
-    for name in ("view_pitch_plain", "view_pitch", "view_pitch",
-                 "view_pitch_plain"):
-        samples[name] += time_ms(runs[name])
+    samples = {k: [] for k in runs}
+    for kernel in ("view_features", "view_pitch"):
+        for name in (kernel + "_plain", kernel, kernel, kernel + "_plain"):
+            samples[name] += time_ms(runs[name])
     ms = {k: float(np.median(v)) for k, v in samples.items()}
-    print(f"K2 at {GAP_FRAME}/{GAP_HOP}, {rows.shape[0] - 1} frames: median "
+    print(f"K1 and K2 at {label}, {rows.shape[0] - 1} frames: median "
           f"device ms of 10 calls on {card}: " + json.dumps(ms))
     return {"launches": launches, "ms": ms}
 
@@ -1045,18 +1090,22 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
     frames, sig400 = frames_run["frames"], frames_run["signal"]
     block, _ = pipe.process_signal_device(rows)
     # The FFT stage alone through torch.fft (cuFFT), which the port never
-    # calls: K3's windowed 512-point power spectrum, and K2's two 1024-point
-    # transforms on the frames formed beforehand.
+    # calls: K1's and K3's windowed 512-point power spectra, and K2's two
+    # 1024-point transforms, on the frames formed beforehand.
     import torch
 
     window = fc["window"]
-    acf_frames = torch.cat([rows[:-1], rows[1:]], dim=1)
+    view_frames = torch.cat([rows[:-1], rows[1:]], dim=1)
+
+    def k1_fft_stage():
+        return torch.fft.rfft(view_frames * feat["window"],
+                              n=pipe.cfg.n_fft).abs() ** 2
 
     def k3_fft_stage():
         return torch.fft.rfft(frames * window, n=pipe400.cfg.n_fft).abs() ** 2
 
     def k2_fft_stage():
-        return torch.fft.irfft(torch.fft.rfft(acf_frames, n=1024).abs() ** 2,
+        return torch.fft.irfft(torch.fft.rfft(view_frames, n=1024).abs() ** 2,
                                n=1024)
 
     runs = {
@@ -1070,6 +1119,7 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
         "pitch": lambda: pitch_track_signal(rows, block.vad,
                                             min_confidence=0.3),
         "frames_features_vad": lambda: pipe400.process_signal_device(sig400),
+        "view_features_fft_stage_library": k1_fft_stage,
         "frame_features_fft_stage_library": k3_fft_stage,
         "view_pitch_fft_stage_library": k2_fft_stage,
         # K3 as it runs beside a separate entropy spectrum (it then skips
@@ -1082,6 +1132,7 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
     for a, b in (("view_features_plain", "view_features"),
                  ("view_pitch_plain", "view_pitch"),
                  ("frame_features_plain", "frame_features"),
+                 ("view_features_fft_stage_library", "view_features"),
                  ("frame_features_fft_stage_library", "frame_features"),
                  ("view_pitch_fft_stage_library", "view_pitch"),
                  ("frame_features_without_entropy", "frames_features_vad"),
@@ -1091,7 +1142,7 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
     out = {k: float(np.median(v)) for k, v in samples.items()}
     spread = {k: [float(min(v)), float(max(v))] for k, v in samples.items()}
     audio_s = (rows.shape[0] - 1) * 160 / SR
-    print(f"median device ms of 10 calls (20 for K3 and K2) at "
+    print(f"median device ms of 10 calls (20 for the kernels) at "
           f"{rows.shape[0] - 1} frames of "
           f"320 and {frames.shape[0]} of {frames.shape[1]} ({audio_s:.0f} s "
           f"of audio) on {card}: " + json.dumps(out))
@@ -1135,11 +1186,10 @@ def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     (a multiply-add is 2). The first counts the least operations of the
     function: the power spectrum and the ACF by real FFTs, the mel
     filterbank by its nonzero weights. The second is the ceiling of the
-    kernel's own design: for K1 the DFT and the filterbank as the dense
-    GEMMs it runs; for K3 and K2 the FFTs at the kernel's transform size
-    (K2's power of two against the least size the ACF needs), or the
-    shared-memory traffic of their design over ``SMEM_BYTES_PER_S``,
-    whichever is larger."""
+    kernel's own design: the FFTs at the kernel's transform size (K2's
+    power of two against the least size the ACF needs), or the
+    shared-memory traffic of the design (the FFT's stages and the tail's
+    rows) over ``SMEM_BYTES_PER_S``, whichever is larger."""
     from sspv_tpu_torch.ops import fft_tables
 
     c = pipe.cfg
@@ -1149,14 +1199,19 @@ def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     fb_nnz = int((pipe._view_consts["fb_t"] != 0).sum())
     # power, mel, log, DCT, lifter, entropy
     tail = 3 * bins + 2 * fb_nnz + nf + 2 * nf * nc + nc + 5 * bins
-    tail_gemm = tail + 2 * (bins * nf - fb_nnz)
     frame_ops = 3 * frame  # window, energy, sign changes
-    out_bytes = 4 * (3 + nc)
-    const_bytes = 4 * (bins * nf + nf * nc + nc)
-    k1_bytes = (4 * (n + 1) * hop + 4 * (frame * c.n_fft + 2 * frame)
-                + const_bytes + n * out_bytes)
-    k1 = (n * (rfft_ops(c.n_fft) + frame_ops + tail),
-          n * (2 * frame * c.n_fft + frame_ops + tail_gemm), k1_bytes, 0)
+    # the kernel reads the rows, the window, its twiddle table, the
+    # filterbank with its ranges and the cepstral constants
+    k1_bytes = (4 * (n + 1) * hop
+                + 4 * (frame + fft_tables.twiddle_table(c.n_fft).size
+                       + bins * nf + 2 * nf + nf * nc + nc)
+                + n * 4 * (3 + nc))
+    # the FFT, the power row out, the ranged mel sum, the log-mel row, the
+    # entropy's two passes, the DCT
+    k1_smem = n * 4 * (rfft_smem_floats(c.n_fft) + bins + fb_nnz + nf
+                       + 2 * bins + nf * nc)
+    k1_ops = n * (rfft_ops(c.n_fft) + frame_ops + tail)
+    k1 = (k1_ops, k1_ops, k1_bytes, k1_smem)
     pk = pitch_kernel_kwargs(pipe)
     nfft_least, n_lags = pk["merged"].shape[1], pk["inv_live"].shape[1]
     # the least transform of the linear ACF (frame + lag_max rounded up to
@@ -1250,9 +1305,9 @@ def main() -> int:
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "
               f"audio-s/s (host clock, {ENGINE_SECONDS} s of audio) on {card}")
     bounds = kernel_bounds(pipe, main["rows"], pipe400, frames_run["frames"])
-    print("design bound ms (K1: DFT/filterbank as dense fp32 GEMMs; K3, K2: "
-          "FFT operations, bytes, or the design's shared-memory traffic at "
-          f"{SMEM_BYTES_PER_S / 1e12:.1f} TB/s): "
+    print("design bound ms (FFT operations, bytes, or the design's "
+          f"shared-memory traffic at {SMEM_BYTES_PER_S / 1e12:.1f} TB/s, "
+          "whichever is largest): "
           + json.dumps({k: v[1] for k, v in bounds.items()}))
     require("jax" not in sys.modules and "sspv_tpu" not in sys.modules,
             "no jax and no sspv_tpu imported")
@@ -1265,8 +1320,8 @@ def main() -> int:
         "frame_features": ("sspv_tpu_torch/csrc/frame_features.cu",
                            "sspv_tpu/ops/pallas_kernels.py:43", frames_run),
     }
-    # the mesh wrappers at the one-card mesh; their bounds are K1's and K2's
-    # at the same shape
+    # the mesh wrappers at the one-card mesh; their bounds and FFT-stage
+    # yardsticks are K1's and K2's at the same shape
     d1 = long_ms[LONG_SHARDS[0]]
     ms.update((k, d1[k]) for k in d1)
     for name, kernel, line in (("long_kernel_feats", "view_features", 304),
@@ -1274,6 +1329,7 @@ def main() -> int:
         sources[name] = ("sspv_tpu_torch/parallel/mesh.py",
                          f"sspv_tpu/parallel/mesh.py:{line}", long_run)
         bounds[name] = bounds[kernel]
+        ms[name + "_fft_stage_library"] = ms[kernel + "_fft_stage_library"]
     # library_ms: no single PyTorch call computes any of these functions;
     # fft_stage_library_ms is the FFT stage alone through torch.fft
     kernels = [

@@ -1,6 +1,6 @@
 // A real-input, power-of-two FFT of ONE frame per warp, in shared memory and
-// registers, fp32 and IEEE throughout. Shared by frame_features.cu (K3) and
-// view_pitch.cu (K2).
+// registers, fp32 and IEEE throughout. Shared by view_features.cu (K1),
+// view_pitch.cu (K2) and frame_features.cu (K3).
 //
 // The N-point real FFT runs as the M = N/2-point complex FFT of the even/odd
 // packing z[n] = x[2n] + i x[2n+1], then an untangling step to bins 0..M.
@@ -206,11 +206,13 @@ __device__ __forceinline__ void load_table(const float* __restrict__ table,
 // Samples x[0..n) (times w[0..n) if WINDOWED), zero-padded to N, packed into
 // `buf` as z[t / 2] = v[t] + i v[t + 1]. If WINDOWED, each lane also adds its
 // share of the energy sum(v^2) to `e` and of the sign changes between
-// neighbouring windowed samples to `changes` (sum both across the warp).
+// neighbouring samples to `changes` (sum both across the warp): the signs of
+// the windowed samples, or with RAW_SIGNS those of the samples as read (a
+// product x w that underflows to zero loses the sign of x).
 // VEC reads 16 bytes a lane (n % 4 == 0, x and w 16-byte aligned); otherwise
 // one float a lane, neighbouring lanes on neighbouring addresses. All 32
 // lanes must call it.
-template <int N, bool WINDOWED, bool VEC>
+template <int N, bool WINDOWED, bool VEC, bool RAW_SIGNS = false>
 __device__ __forceinline__ void pack_frame(const float* __restrict__ x, int n,
                                            const float* __restrict__ w,
                                            float* buf, int lane, float& e,
@@ -223,8 +225,10 @@ __device__ __forceinline__ void pack_frame(const float* __restrict__ x, int n,
     for (int t4 = lane; t4 < N / 4; t4 += 32) {
       const bool live = 4 * t4 < n;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 raw = v;
       if (live) {
         v = __ldg(x4 + t4);
+        raw = v;
         if constexpr (WINDOWED) {
           const float4 ww = __ldg(w4 + t4);
           v.x *= ww.x;
@@ -234,18 +238,19 @@ __device__ __forceinline__ void pack_frame(const float* __restrict__ x, int n,
         }
       }
       if constexpr (WINDOWED) {
-        float prev = __shfl_up_sync(kFull, v.w, 1);
+        const float4 s = RAW_SIGNS ? raw : v;  // what the signs are taken of
+        float prev = __shfl_up_sync(kFull, s.w, 1);
         if (lane == 0) prev = carry;
-        carry = __shfl_sync(kFull, v.w, 31);
+        carry = __shfl_sync(kFull, s.w, 31);
         if (live) {
           e = fmaf(v.x, v.x, e);
           e = fmaf(v.y, v.y, e);
           e = fmaf(v.z, v.z, e);
           e = fmaf(v.w, v.w, e);
-          changes += (t4 > 0 && sign_of(v.x) != sign_of(prev)) +
-                     (sign_of(v.y) != sign_of(v.x)) +
-                     (sign_of(v.z) != sign_of(v.y)) +
-                     (sign_of(v.w) != sign_of(v.z));
+          changes += (t4 > 0 && sign_of(s.x) != sign_of(prev)) +
+                     (sign_of(s.y) != sign_of(s.x)) +
+                     (sign_of(s.z) != sign_of(s.y)) +
+                     (sign_of(s.w) != sign_of(s.z));
         }
       }
       const int i0 = phys(2 * t4), i1 = phys(2 * t4 + 1);
@@ -257,18 +262,20 @@ __device__ __forceinline__ void pack_frame(const float* __restrict__ x, int n,
   } else {
     for (int t = lane; t < N; t += 32) {
       const bool live = t < n;
-      float v = 0.f;
+      float v = 0.f, raw = 0.f;
       if (live) {
         v = __ldg(x + t);
+        raw = v;
         if constexpr (WINDOWED) v *= __ldg(w + t);
       }
       if constexpr (WINDOWED) {
-        float prev = __shfl_up_sync(kFull, v, 1);
+        const float s = RAW_SIGNS ? raw : v;
+        float prev = __shfl_up_sync(kFull, s, 1);
         if (lane == 0) prev = carry;
-        carry = __shfl_sync(kFull, v, 31);
+        carry = __shfl_sync(kFull, s, 31);
         if (live) {
           e = fmaf(v, v, e);
-          changes += t > 0 && sign_of(v) != sign_of(prev);
+          changes += t > 0 && sign_of(s) != sign_of(prev);
         }
       }
       buf[(t & 1) * M + phys(t >> 1)] = v;

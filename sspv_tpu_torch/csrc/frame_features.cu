@@ -30,9 +30,10 @@
 //    depends on where it sits; the windowed samples go from device memory
 //    (16 bytes a lane where the frame allows) through registers, where the
 //    energy and the sign changes are taken, into the packed FFT buffer; the
-//    power row replaces the FFT's free buffer; the mel stage sums each filter
-//    over its nonzero bins only (ranges from the host), about 2 * n_bins
-//    multiply-adds per frame instead of n_bins * num_filters.
+//    power row replaces the FFT's free buffer; the tail (spectral_tail.cuh,
+//    shared with K1) sums each mel filter over its nonzero bins only (ranges
+//    from the host), about 2 * n_bins multiply-adds per frame instead of
+//    n_bins * num_filters.
 // 2. `sspv_frame_features`, the dense route for every other geometry
 //    (arbitrary bases, an odd or non-power-of-two n_fft, n_fft outside
 //    256..2048, a frame longer than n_fft): the power from the windowed DFT
@@ -52,6 +53,7 @@
 // entropy's x log x match the PyTorch version to rounding.
 
 #include "fft.cuh"
+#include "spectral_tail.cuh"
 #include "view_common.cuh"
 
 namespace {
@@ -319,7 +321,6 @@ __global__ void __launch_bounds__(kFftWarps * 32) frame_features_fft_kernel(
     int compute_entropy, float* __restrict__ energy, float* __restrict__ zcr,
     float* __restrict__ entropy, float* __restrict__ mfcc) {
   namespace fft = sspv::fft;
-  constexpr int M = N / 2, n_bins = M + 1;
   extern __shared__ float4 smem4[];
   float* tw = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31;
@@ -350,44 +351,15 @@ __global__ void __launch_bounds__(kFftWarps * 32) frame_features_fft_kernel(
     });
     __syncwarp();
 
-    // Mel filterbank over each filter's nonzero bins -> clamp -> log.
-    for (int m = lane; m < num_filters; m += 32) {
-      const int lo = __ldg(mel_ranges + 2 * m);
-      const int hi = __ldg(mel_ranges + 2 * m + 1);
-      float acc = 0.f;
-      for (int k = lo; k < hi; ++k)
-        acc = fmaf(power[k], __ldg(fb_t + k * num_filters + m), acc);
-      logmel[m] = logf(fmaxf(acc, 1e-10f));
-    }
-
-    // Spectral entropy over the n_bins bins (zeros when the wrapper computes
-    // it from a separate spectrum).
-    float h = 0.f;
-    if (compute_entropy) {
-      float s = 0.f;
-      for (int k = lane; k < n_bins; k += 32) s += power[k];
-      s = sspv::warp_sum(s);
-      for (int k = lane; k < n_bins; k += 32) {
-        const float pn = fmaxf(s > 0.f ? power[k] / s : 0.f, 1e-12f);
-        h += pn * logf(pn);
-      }
-      h = sspv::warp_sum(h);
-    }
     if (lane == 0) {
       energy[f] = e;
       zcr[f] = (float)changes * (1.f / (float)frame);
-      entropy[f] = compute_entropy ? -h / log_bins : 0.f;
     }
-    __syncwarp();
-
-    // DCT -> lifter, one lane per coefficient.
-    for (int c = lane; c < num_ceps; c += 32) {
-      float acc = 0.f;
-      for (int m = 0; m < num_filters; ++m)
-        acc = fmaf(logmel[m], __ldg(dct + m * num_ceps + c), acc);
-      mfcc[(size_t)f * num_ceps + c] = acc * __ldg(lifter + c);
-    }
-    __syncwarp();  // the next frame overwrites the buffers and the log-mel row
+    // The entropy is 0 here when the wrapper computes it from a separate
+    // spectrum (compute_entropy == 0).
+    sspv::spectral_tail<N>(power, logmel, fb_t, mel_ranges, num_filters, dct,
+                           lifter, num_ceps, log_bins, compute_entropy, lane,
+                           entropy + f, mfcc + (size_t)f * num_ceps);
   }
 }
 

@@ -98,7 +98,7 @@ def build() -> tuple[Path, str]:
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sspv_view_features.argtypes = [
-        p, i, i, p, p, p, i, p, i, p, p, i, f, p, p, p, p, p,
+        p, i, i, p, p, i, p, p, i, p, p, i, f, p, p, p, p, p,
     ]
     lib.sspv_view_features.restype = i
     lib.sspv_view_pitch.argtypes = [p, i, i, p, i, i, i, f, p, p, p]

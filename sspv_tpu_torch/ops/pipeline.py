@@ -19,11 +19,13 @@ exactly the branches of the JAX package. ``pitch_track_signal`` (kernel K2
 on the rows view, or the Wiener-Khinchin matmuls on frames) gives the F0
 track, gated on the VAD.
 
-On a CPU device the kernels' plain PyTorch versions run instead. K1 also
-needs hop % 4 == 0, an even n_fft and a shared entropy spectrum: a view
-geometry without them (the JAX package serves it with its XLA view path)
-takes the view routes with K3 on the frames formed from the signal on the
-device. K2 takes every view geometry.
+On a CPU device the kernels' plain PyTorch versions run instead. K1 takes
+any hop, but computes its spectrum by an FFT: it needs an ``n_fft`` that is
+a power of two in 256..2048 no shorter than the frame, the bases this
+configuration builds and a shared entropy spectrum. A view geometry without
+them (the JAX package serves it with its XLA view path) takes the view
+routes with K3 on the frames formed from the signal on the device. K2 takes
+every view geometry.
 """
 
 from __future__ import annotations
@@ -155,14 +157,18 @@ FEATURE_CONSTANTS = ("window", "wc", "ws", "wm", "wnyq", "fb_t", "dct",
 ACF_CONSTANTS = ("acf_merged", "acf_nyq", "acf_inv_live", "acf_inv_nyq")
 
 
-def _view_unsupported(cfg: FeatureConfig) -> str | None:
-    """Why the view kernels cannot take this view geometry, or None."""
-    if cfg.hop_size % 4:
-        return f"hop_size {cfg.hop_size} is not a multiple of 4"
-    if cfg.n_fft % 2:
-        return f"odd n_fft {cfg.n_fft}"
+def _view_unsupported(cfg: FeatureConfig, standard_bases: bool) -> str | None:
+    """Why the view features kernel cannot take this view geometry, or
+    None. ``standard_bases``: the loaded window and merged DFT bases are
+    the ones ``cfg`` builds (the kernel computes their spectrum by an FFT)."""
+    if fft_tables.fft_route_size(cfg.frame_size, cfg.n_fft) is None:
+        return (f"n_fft {cfg.n_fft} is not a power of two in "
+                f"{fft_tables.FFT_SIZES[0]}..{fft_tables.FFT_SIZES[-1]} no "
+                f"shorter than the frame ({cfg.frame_size})")
     if cfg.entropy_n_fft != cfg.n_fft:
         return f"entropy_n_fft {cfg.entropy_n_fft} != n_fft {cfg.n_fft}"
+    if not standard_bases:
+        return "the loaded window/wm/wnyq are not this configuration's"
     return None
 
 
@@ -194,9 +200,6 @@ class FeaturePipeline:
         # frames path everything else
         self._view_geometry = (c.frame_size == 2 * c.hop_size
                                and bool(np.all(window > 0)))
-        # K1 takes the view geometry only without _view_unsupported's gaps
-        self._view_kernel_ok = (self._view_geometry
-                                and _view_unsupported(c) is None)
         consts = {"window": window}
         consts["wc"], consts["ws"] = bases.windowed_dft_bases(
             c.frame_size, c.n_fft, c.window_type
@@ -215,8 +218,9 @@ class FeaturePipeline:
         consts["dct"] = bases.dct_ortho_matrix(c.num_filters, c.num_ceps)
         consts["lifter"] = bases.lifter_vector(c.num_ceps, c.lifter)
         self._wm = self._wnyq = self._wc_ent = self._ws_ent = None
-        # host copies of what chooses and feeds K3's FFT route
-        self._host_consts = dict.fromkeys(("window", "wc", "ws", "fb_t"))
+        # host copies of what chooses and feeds the kernels' FFT routes
+        self._host_consts = dict.fromkeys(("window", "wc", "ws", "wm", "wnyq",
+                                           "fb_t"))
         self._acf: dict[int, tuple] = {}
         self.load_constants(consts)
 
@@ -238,33 +242,42 @@ class FeaturePipeline:
         if all(k in consts for k in ACF_CONSTANTS):
             acf = tuple(self._tensor(consts[k]) for k in ACF_CONSTANTS)
             self._acf[acf[2].shape[1] - 1] = acf
+        c = self.cfg
+        mel_ranges = torch.from_numpy(fft_tables.mel_ranges(
+            self._host_consts["fb_t"])).to(self.device)
+        wc, ws = bases.windowed_dft_bases(c.frame_size, c.n_fft, c.window_type)
         self._frame_consts = dict(
             window=self._window, wc=self._wc, ws=self._ws, fb_t=self._fb_t,
             dct=self._dct, lifter=self._lifter,
             entropy_bases=(self._wc_ent, self._ws_ent),
-            n_fft=self._standard_n_fft(),
-            mel_ranges=torch.from_numpy(fft_tables.mel_ranges(
-                self._host_consts["fb_t"])).to(self.device),
+            n_fft=c.n_fft if self._loaded_equal(wc=wc, ws=ws) else None,
+            mel_ranges=mel_ranges,
         )
         self._view_consts = None
-        if self._wm is not None:
+        # K1 takes the view geometry only without _view_unsupported's gaps
+        self._view_kernel_ok = False
+        if self._wm is not None and c.n_fft % 2 == 0:
+            wm, wnyq = bases.merged_windowed_dft_bases(
+                c.frame_size, c.n_fft, c.window_type)
+            standard = self._loaded_equal(wm=wm, wnyq=wnyq)
             self._view_consts = dict(
                 w2=self._window * self._window, wm=self._wm, wnyq=self._wnyq,
                 fb_t=self._fb_t, dct=self._dct, lifter=self._lifter,
+                window=self._window, n_fft=c.n_fft if standard else None,
+                mel_ranges=mel_ranges,
             )
+            self._view_kernel_ok = (self._view_geometry and
+                                    _view_unsupported(c, standard) is None)
 
-    def _standard_n_fft(self) -> int | None:
-        """``cfg.n_fft`` if the loaded window and DFT pair are the ones this
-        configuration builds (so the frames kernel may compute the same
-        spectrum by an FFT), None for any other bases."""
+    def _loaded_equal(self, **want) -> bool:
+        """Whether the loaded window and the named loaded bases are the ones
+        this configuration builds, bit for bit (a kernel may then compute
+        the same spectrum by an FFT of ``cfg.n_fft`` points)."""
         c = self.cfg
-        wc, ws = bases.windowed_dft_bases(c.frame_size, c.n_fft, c.window_type)
-        want = {"window": get_window(c.window_type, c.frame_size), "wc": wc,
-                "ws": ws}
-        same = all(np.array_equal(self._host_consts[k],
+        want["window"] = get_window(c.window_type, c.frame_size)
+        return all(np.array_equal(self._host_consts[k],
                                   np.asarray(v, np.float32))
                    for k, v in want.items())
-        return c.n_fft if same else None
 
     def constants(self) -> dict:
         """The pipeline's bases as NumPy arrays, with the ACF bases of the

@@ -6,7 +6,11 @@ Counterpart of ``sspv_tpu/ops/pallas_view.py``. Both kernels take the
 (frame_size == 2*hop), where frame i is ``rows[i] || rows[i+1]``:
 
 - ``fused_view_features`` (K1, ``csrc/view_features.cu``): energy, zcr,
-  entropy ``(F,)`` and mfcc ``(F, num_ceps)``;
+  entropy ``(F,)`` and mfcc ``(F, num_ceps)``, at any hop. The kernel
+  computes the spectrum with one shared-memory real FFT of ``n_fft`` points
+  per frame (``fft_tables.fft_route_size``: a power of two in 256..2048, no
+  shorter than the frame) and raises for any other transform; the merged
+  DFT bases ``wm``/``wnyq`` and ``w2`` are the plain version's inputs only;
 - ``fused_view_pitch`` (K2, ``csrc/view_pitch.cu``): the ungated banded-ACF
   ``(f0, conf)``, ``(F,)`` each, at any hop (16-byte reads where
   hop % 4 == 0, one float at a time otherwise). The kernel computes the
@@ -75,9 +79,12 @@ def _merged_power(m: torch.Tensor, nyq: torch.Tensor) -> torch.Tensor:
 
 
 def view_features_plain(rows, *, w2, wm, wnyq, fb_t, dct, lifter,
+                        window=None, n_fft=None, mel_ranges=None,
                         block_frames: int = PLAIN_BLOCK_FRAMES) -> dict:
     """Plain PyTorch K1: the hop-phase view math of the JAX package
-    (``pipeline.py:744-795`` + ``_spectral_tail`` + ``entropy_from_power``)."""
+    (``pipeline.py:744-795`` + ``_spectral_tail`` + ``entropy_from_power``).
+    ``window``, ``n_fft`` and ``mel_ranges`` only feed the kernel: the dense
+    products here do not read them."""
     parts = [
         _view_features_block(rb, w2, wm, wnyq, fb_t, dct, lifter)
         for rb in _row_blocks(rows, block_frames)
@@ -144,7 +151,9 @@ def _check_rows(rows: torch.Tensor) -> torch.Tensor:
             f"{rows.dtype}"
         )
     rows = rows.contiguous()
-    if rows.data_ptr() % 16:  # the kernels read rows as float4 (hop % 4 == 0)
+    # with hop % 4 == 0 the kernels read rows 16 bytes a lane, and a frame's
+    # sums must not depend on where the caller's view starts
+    if rows.shape[1] % 4 == 0 and rows.data_ptr() % 16:
         rows = rows.clone()
     return rows
 
@@ -163,14 +172,25 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter) -> dict:
-    """Per-frame features of a ``(F+1, hop)`` rows view.
+def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter, window,
+                        n_fft: int | None = None, mel_ranges=None) -> dict:
+    """Per-frame features of a ``(F+1, hop)`` rows view, at any hop.
 
     Returns the dict of the JAX ``FeaturePipeline._features_from_rows``:
-    energy/zcr/entropy ``(F,)`` and mfcc ``(F, num_ceps)``. ``wm``/``wnyq``
-    are the merged windowed-DFT bases, ``w2`` the squared window, ``fb_t``
-    the ``(n_fft//2+1, num_filters)`` filterbank, ``dct`` and ``lifter`` the
-    cepstral constants, all on the device of ``rows``."""
+    energy/zcr/entropy ``(F,)`` and mfcc ``(F, num_ceps)``. ``window`` is
+    the ``(2*hop,)`` analysis window, ``w2`` its square, ``wm``/``wnyq`` the
+    merged windowed-DFT bases, ``fb_t`` the ``(n_fft//2+1, num_filters)``
+    filterbank, ``dct`` and ``lifter`` the cepstral constants, all on the
+    device of ``rows``.
+
+    ``n_fft`` states that ``wm``/``wnyq`` are ``window`` times the merged
+    cos/sin basis of an ``n_fft``-point real transform
+    (``bases.merged_windowed_dft_bases``): the kernel computes that spectrum
+    by an FFT and reads ``window``, not the bases. A CUDA tensor raises
+    ``NotImplementedError`` without it, or where ``fft_tables.fft_route_size``
+    does not take the transform. ``mel_ranges`` is
+    ``fft_tables.mel_ranges(fb_t)`` as an int32 tensor on the device (built
+    from ``fb_t`` on each call if left out)."""
     if rows.device.type == "cpu":
         return view_features_plain(rows, w2=w2, wm=wm, wnyq=wnyq, fb_t=fb_t,
                                    dct=dct, lifter=lifter)
@@ -179,20 +199,29 @@ def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter) -> dict:
     rows = _check_rows(rows)
     dev = rows.device
     f, hop = rows.shape[0] - 1, rows.shape[1]
-    frame, n_fft = 2 * hop, wm.shape[1]
-    if hop % 4:
+    frame = 2 * hop
+    if n_fft is None:
         raise NotImplementedError(
-            f"the view_features kernel needs hop % 4 == 0, got hop={hop}")
-    if n_fft % 2:
-        raise NotImplementedError("the view_features kernel needs an even n_fft")
-    n_bins, num_filters = fb_t.shape
-    num_ceps = dct.shape[1]
-    w2 = _on(dev, "w2", w2, (frame,))
-    wm = _on(dev, "wm", wm, (frame, n_fft))
-    wnyq = _on(dev, "wnyq", wnyq, (frame,))
-    fb_t = _on(dev, "fb_t", fb_t, (n_fft // 2 + 1, num_filters))
+            "the view_features kernel computes the spectrum by an FFT: it "
+            "takes wm/wnyq only with the n_fft they are the windowed basis of")
+    if fft_tables.fft_route_size(frame, n_fft) is None:
+        raise NotImplementedError(
+            f"the view_features kernel takes n_fft in {fft_tables.FFT_SIZES} "
+            f"no shorter than the frame, got n_fft={n_fft}, frame={frame}")
+    num_filters, num_ceps = fb_t.shape[1], dct.shape[1]
+    n_bins = n_fft // 2 + 1
+    if tuple(wm.shape) != (frame, n_fft):
+        raise ValueError(f"wm must be ({frame}, {n_fft}), got {tuple(wm.shape)}")
+    window = _on(dev, "window", window, (frame,))
+    fb_t = _on(dev, "fb_t", fb_t, (n_bins, num_filters))
     dct = _on(dev, "dct", dct, (num_filters, num_ceps))
     lifter = _on(dev, "lifter", lifter, (num_ceps,))
+    if mel_ranges is None:
+        mel_ranges = torch.from_numpy(
+            fft_tables.mel_ranges(fb_t.cpu().numpy())).to(dev)
+    mel_ranges = _on(dev, "mel_ranges", mel_ranges, (num_filters, 2),
+                     torch.int32)
+    table = fft_tables.device_twiddles(n_fft, dev)
     energy = torch.empty(f, device=dev)
     zcr = torch.empty(f, device=dev)
     entropy = torch.empty(f, device=dev)
@@ -201,8 +230,8 @@ def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter) -> dict:
         lib = _build.library()
         with torch.cuda.device(dev):
             err = lib.sspv_view_features(
-                rows.data_ptr(), f, hop, w2.data_ptr(), wm.data_ptr(),
-                wnyq.data_ptr(), n_fft, fb_t.data_ptr(), num_filters,
+                rows.data_ptr(), f, hop, window.data_ptr(), table.data_ptr(),
+                n_fft, fb_t.data_ptr(), mel_ranges.data_ptr(), num_filters,
                 dct.data_ptr(), lifter.data_ptr(), num_ceps,
                 float(np.float32(np.log(n_bins))), energy.data_ptr(),
                 zcr.data_ptr(), entropy.data_ptr(), mfcc.data_ptr(),

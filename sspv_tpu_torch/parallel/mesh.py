@@ -123,10 +123,12 @@ class BatchPipeline:
     ``long_kernel`` selects ``process_long``'s shard route (K1/K2 per
     device). It runs where the geometry allows: frame = 2·hop, a strictly
     positive window, no separate entropy spectrum (the JAX package's gate),
-    and hop % 4 == 0 with an even ``n_fft`` (the port's kernels). ``None``
-    takes it wherever that gate passes, ``False`` takes the single-device
-    view path. Unlike the JAX package it does NOT gate on ``precision``:
-    the port's kernels are fp32 whatever ``precision`` says.
+    and an ``n_fft`` K1's FFT serves with the bases this configuration
+    builds (the port's kernel; the gate follows a later
+    ``load_constants``). ``None`` takes it wherever that gate passes,
+    ``False`` takes the single-device view path. Unlike the JAX package it
+    does NOT gate on ``precision``: the port's kernels are fp32 whatever
+    ``precision`` says.
 
     On the card the shard route is bit-identical to the single-device
     kernel call at every shard count. On the CPU (the plain versions) it is
@@ -144,9 +146,14 @@ class BatchPipeline:
             if dev not in self._pipes:
                 self._pipes[dev] = FeaturePipeline(cfg, device=dev)
         self.pipe = self._pipes[mesh.devices.flat[0]]
-        gate = self.pipe._view_kernel_ok
-        self._long_kernel = gate if long_kernel is None else (
-            bool(long_kernel) and gate)
+        self._long_kernel_wanted = long_kernel is None or bool(long_kernel)
+
+    @property
+    def _long_kernel(self) -> bool:
+        """Whether ``process_long`` takes the shard route: asked for (or
+        left to the gate) and K1 takes the geometry with the constants the
+        pipelines hold now."""
+        return self._long_kernel_wanted and self.pipe._view_kernel_ok
 
     def load_constants(self, consts: dict) -> None:
         """``FeaturePipeline.load_constants`` on every device's pipeline."""

@@ -49,7 +49,7 @@ def _pitch_kwargs(pipe):
 
 
 UNSUPPORTED = {
-    "hop_not_multiple_of_4": dict(frame_size=324, hop_size=162),
+    "n_fft_not_a_power_of_two": dict(n_fft=640, entropy_n_fft=640),
     "odd_n_fft": dict(n_fft=511, entropy_n_fft=511),
     "separate_entropy_spectrum": dict(entropy_n_fft=256),
 }
@@ -59,8 +59,9 @@ UNSUPPORTED = {
 @pytest.mark.parametrize("name", list(UNSUPPORTED))
 def test_unsupported_geometry_raises(device, name):
     """View geometries (frame == 2*hop, positive window) that the view
-    kernels do not take, which the JAX package serves with its XLA view
-    path: the view routes no longer raise but run K3 on the frames formed
+    features kernel does not take (its FFT serves neither transform, and it
+    has no second entropy spectrum), which the JAX package serves with its
+    XLA view path: the view routes do not raise but run K3 on the frames formed
     on the device, so process_signal_device gives exactly the frames path's
     block (process_signal), launching K3 and no view kernel; the engine's
     samples dispatch stays on, as in the JAX package."""
@@ -119,11 +120,16 @@ def test_build_recipe():
         assert f"Replaces: sspv_tpu/ops/{tpu}" in src
         assert "What bounds it on the H100" in src
         assert 'extern "C" int sspv_' in src
-    # K3's FFT route and K2 share the device FFT, whose twiddles come from the
-    # host-built table: no sine or cosine is computed in any kernel
+    # K1, K2 and K3's FFT route share the device FFT, whose twiddles come from
+    # the host-built table: no sine or cosine is computed in any kernel; K1
+    # and K3's FFT route share their tail
     csrc = REPO / "sspv_tpu_torch" / "csrc"
-    for name in ("frame_features.cu", "view_pitch.cu"):
+    for name in ("view_features.cu", "frame_features.cu", "view_pitch.cu"):
         assert '#include "fft.cuh"' in (csrc / name).read_text()
+    for name in ("view_features.cu", "frame_features.cu"):
+        assert "sspv::spectral_tail<N>(" in (csrc / name).read_text()
+    assert "dft_power" not in "".join(
+        p.read_text() for p in csrc.iterdir())  # no dense K1 left
     for path in csrc.iterdir():
         code = "\n".join(line.split("//")[0]
                          for line in path.read_text().splitlines())
@@ -315,12 +321,99 @@ def test_frame_kernel_zero_frames_are_finite():
 def test_kernels_reject_what_they_cannot_take():
     dev = _device("cuda")
     pipe = FeaturePipeline(device=dev)
-    with pytest.raises(NotImplementedError):  # hop % 4 != 0
-        vk.fused_view_features(torch.zeros((5, 162), device=dev),
-                               **pipe._view_consts)
+    consts = pipe._view_consts
+    # hop % 4 != 0 runs (one-float loads); the 320-sample window does not fit
+    with pytest.raises(ValueError):
+        vk.fused_view_features(torch.zeros((5, 162), device=dev), **consts)
+    rows = torch.zeros((5, 160), device=dev)
+    with pytest.raises(NotImplementedError):  # bases nobody vouched for
+        vk.fused_view_features(rows, **dict(consts, n_fft=None))
+    for gap in (dict(n_fft=640, entropy_n_fft=640),  # no FFT of that size
+                dict(n_fft=256, entropy_n_fft=256)):  # shorter than the frame
+        gap_consts = FeaturePipeline(FeatureConfig(**gap), device=dev)._view_consts
+        with pytest.raises(NotImplementedError):
+            vk.fused_view_features(rows, **gap_consts)
     cpu_consts = FeaturePipeline(device="cpu")._view_consts
     with pytest.raises(ValueError):  # constants on another device
-        vk.fused_view_features(torch.zeros((5, 160), device=dev), **cpu_consts)
+        vk.fused_view_features(rows, **cpu_consts)
+
+
+# (frame_size, hop, n_fft): one-float loads (hop % 4 != 0) at two hops, a
+# frame that fills its transform, and the 1024- and 2048-point transforms.
+K1_GEOMETRIES = {"322_161": (322, 161, 512), "324_162": (324, 162, 512),
+                 "256_128_of_256": (256, 128, 256),
+                 "640_320_of_1024": (640, 320, 1024),
+                 "2048_1024_of_2048": (2048, 1024, 2048)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 1025])
+@pytest.mark.parametrize("case", list(K1_GEOMETRIES))
+def test_view_features_kernel_takes_any_hop(case, n):
+    """K1 against its plain version off the default geometry, and through
+    process_signal_device (one K1 launch, no K3)."""
+    dev = _device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frame, hop, n_fft = K1_GEOMETRIES[case]
+    pipe = FeaturePipeline(FeatureConfig(frame_size=frame, hop_size=hop,
+                                         n_fft=n_fft, entropy_n_fft=n_fft),
+                           device=dev)
+    assert pipe._view_kernel_ok
+    rows = torch.from_numpy(
+        np.random.default_rng(n).normal(0, 1000, (n + 1, hop)).astype(np.float32)
+    ).to(dev)
+    before = dict(vk.LAUNCHES)
+    got = vk.fused_view_features(rows, **pipe._view_consts)
+    want = vk.view_features_plain(rows, **pipe._view_consts)
+    torch.cuda.synchronize()
+    assert vk.LAUNCHES["view_features"] == before["view_features"] + 1
+    assert torch.equal(got["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
+    block, _ = pipe.process_signal_device(rows)
+    assert vk.LAUNCHES["view_features"] == before["view_features"] + 2
+    assert vk.LAUNCHES["frame_features"] == before["frame_features"]
+    for k in got:
+        assert torch.equal(getattr(block, k), got[k]), k
+
+
+@pytest.mark.cuda
+def test_view_features_kernel_zero_rows_are_finite():
+    """Bucket padding: all-zero rows give energy 0, zcr 0 and finite entropy
+    and mfcc, equal to the plain version's."""
+    dev = _device("cuda")
+    consts = FeaturePipeline(device=dev)._view_consts
+    zeros = torch.zeros((41, 160), device=dev)
+    got = vk.fused_view_features(zeros, **consts)
+    want = vk.view_features_plain(zeros, **consts)
+    assert not got["energy"].any() and not got["zcr"].any()
+    for k in got:
+        assert bool(torch.isfinite(got[k]).all()), k
+        assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hop", [160, 161])
+def test_view_features_kernel_ignores_the_pointer(hop):
+    """A rows view that starts at a misaligned address (a signal cut at an
+    odd sample) gives the bits of the same rows at an aligned one, and a
+    view cut at a row boundary the bits of the whole."""
+    dev = _device("cuda")
+    consts = FeaturePipeline(FeatureConfig(frame_size=2 * hop, hop_size=hop),
+                             device=dev)._view_consts
+    n = 300
+    flat = torch.from_numpy(np.random.default_rng(hop).normal(
+        0, 1000, (n + 1) * hop + 1).astype(np.float32)).to(dev)
+    shifted = flat[1:].view(n + 1, hop)
+    assert shifted.data_ptr() % 16
+    aligned = shifted.clone()
+    assert aligned.data_ptr() % 16 == 0
+    got = vk.fused_view_features(shifted, **consts)
+    want = vk.fused_view_features(aligned, **consts)
+    tail = vk.fused_view_features(aligned[100:], **consts)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(tail[k], want[k][100:]), k
 
 
 @pytest.mark.cuda

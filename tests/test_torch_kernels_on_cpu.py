@@ -12,7 +12,8 @@ It runs the device code as written, index math, swizzle, tables and all,
 so a fault in a kernel shows here before a run on the card. It says nothing
 about what ``nvcc`` accepts or how fast anything is. Skips without ``g++``.
 
-Tolerances are the kernels' gates on the card: zcr EXACTLY equal,
+Tolerances are the kernels' gates on the card: zcr EXACTLY equal (K1's of
+the raw samples, K3's of the windowed ones),
 energy/entropy/mfcc and pitch confidence NMSE <= 1e-9, F0 equal on >= 99.9 %
 of frames (all of them on these inputs).
 """
@@ -191,6 +192,93 @@ def test_pitch_kernel_on_cpu_matches_plain(lib, case, n):
         assert f0[5] == f0[6] == want and not conf[5:7].any()
 
 
+def _k1(lib, rows: torch.Tensor, consts: dict) -> dict:
+    """``view_kernels.fused_view_features``'s launch against the CPU
+    library."""
+    n, hop = rows.shape[0] - 1, rows.shape[1]
+    fb_t, dct, n_fft = consts["fb_t"], consts["dct"], consts["n_fft"]
+    (n_bins, nf), nc = fb_t.shape, dct.shape[1]
+    out = {k: torch.full((n,), np.nan) for k in ("energy", "zcr", "entropy")}
+    out["mfcc"] = torch.full((n, nc), np.nan)
+    err = lib.sspv_view_features(
+        rows.data_ptr(), n, hop, consts["window"].data_ptr(),
+        fft_tables.device_twiddles(n_fft, CPU).data_ptr(), n_fft,
+        fb_t.data_ptr(), consts["mel_ranges"].data_ptr(), nf, dct.data_ptr(),
+        consts["lifter"].data_ptr(), nc, float(np.float32(np.log(n_bins))),
+        out["energy"].data_ptr(), out["zcr"].data_ptr(),
+        out["entropy"].data_ptr(), out["mfcc"].data_ptr(), None)
+    assert err == 0
+    return out
+
+
+def _rows(n: int, hop: int, seed: int) -> torch.Tensor:
+    """Noise with a tone over part of it, samples that are exactly zero, a
+    silent stretch, and sign flips and zeros right at row boundaries."""
+    rng = np.random.default_rng(seed)
+    t = np.arange((n + 1) * hop) / 16000
+    sig = (rng.normal(0, 1000, t.size)
+           + 4000 * np.sin(2 * np.pi * 130 * t) * (np.sin(2 * np.pi * 2 * t) > 0))
+    sig[rng.integers(0, t.size, t.size // 50)] = 0.0
+    rows = sig.astype(np.float32).reshape(n + 1, hop)
+    for r in range(0, n, 2):  # a sign flip across every other row boundary
+        rows[r, -1], rows[r + 1, 0] = 700.0, -300.0
+    if n > 8:
+        rows[3, -1] = 0.0  # a zero on one side of a boundary, then on both
+        rows[5, -1] = rows[6, 0] = 0.0
+        rows[12:15] = 0.0  # frames 12 and 13 are all zeros (bucket padding)
+        # samples whose product with the window underflows to zero keep
+        # their sign in the count: ZCR is that of the raw samples
+        rows[16, :8] = np.float32(1e-45) * np.array([1, -1] * 4, np.float32)
+    return torch.from_numpy(rows)
+
+
+# (frame_size, hop, n_fft): 16-byte loads, one-float loads, a frame that
+# fills the transform, and a 1024-point transform.
+K1_CASES = {"320_160_of_512": (320, 160, 512),
+            "322_161_one_float_loads": (322, 161, 512),
+            "256_128_of_256_full_frame": (256, 128, 256),
+            "640_320_of_1024": (640, 320, 1024)}
+
+
+@pytest.mark.parametrize("n", [1, 21])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_view_features_kernel_on_cpu_matches_plain(lib, case, n):
+    """K1 at n = 1 and at a count that is no multiple of the warps per
+    block: zcr EXACTLY equal (zeros and boundary flips included), the rest
+    to NMSE; all-zero frames give energy 0, zcr 0 and finite features."""
+    frame, hop, n_fft = K1_CASES[case]
+    pipe = FeaturePipeline(FeatureConfig(
+        frame_size=frame, hop_size=hop, n_fft=n_fft, entropy_n_fft=n_fft),
+        device="cpu")
+    assert pipe._view_kernel_ok
+    consts = pipe._view_consts
+    rows = _rows(n, hop, seed=n)
+    got = _k1(lib, rows, consts)
+    want = vk.view_features_plain(rows, **consts)
+    assert torch.equal(got["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k], want[k]) <= 1e-9, k
+    if n > 8:
+        assert not got["energy"][12:14].any() and not got["zcr"][12:14].any()
+        for k in got:
+            assert bool(torch.isfinite(got[k]).all()), k
+
+
+@pytest.mark.parametrize("case", ["320_160_of_512", "322_161_one_float_loads"])
+def test_view_features_kernel_on_cpu_ignores_the_split(lib, case):
+    """Position independence: a rows view split in two, the first part with
+    its seam row (the second part's first row), gives every frame the bits
+    the whole view gives it, as the shard route needs."""
+    frame, hop, n_fft = K1_CASES[case]
+    consts = FeaturePipeline(FeatureConfig(frame_size=frame, hop_size=hop),
+                             device="cpu")._view_consts
+    rows = _rows(21, hop, seed=3)
+    whole = _k1(lib, rows, consts)
+    head, tail = _k1(lib, rows[:11], consts), _k1(lib, rows[10:], consts)
+    for k in whole:
+        assert torch.equal(torch.cat([head[k], tail[k]]), whole[k]), k
+
+
 def test_entry_points_refuse_geometries_without_a_kernel(lib):
     """The C entry points return an error (which the wrappers raise) for a
     transform size that has no instantiation and for a frame longer than
@@ -205,3 +293,7 @@ def test_entry_points_refuse_geometries_without_a_kernel(lib):
                                        13, 1.0, 1, p, p, p, p, None) != 0
     assert lib.sspv_frame_features_fft(p, 1, 400, p, p, 500, p, p, 26, p, p,
                                        13, 1.0, 1, p, p, p, p, None) != 0
+    assert lib.sspv_view_features(p, 1, 160, p, p, 640, p, p, 26, p, p, 13,
+                                  1.0, p, p, p, p, None) != 0
+    assert lib.sspv_view_features(p, 1, 300, p, p, 512, p, p, 26, p, p, 13,
+                                  1.0, p, p, p, p, None) != 0

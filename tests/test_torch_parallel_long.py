@@ -33,7 +33,8 @@ SHARDS = (1, 4, 8)
 ROUTES = ("shard", "view")
 GAPS = {"hop_161": dict(frame_size=322, hop_size=161),
         "n_fft_511": dict(n_fft=511, entropy_n_fft=511),
-        "entropy_1024": dict(entropy_n_fft=1024)}
+        "entropy_1024": dict(entropy_n_fft=1024),
+        "n_fft_640": dict(n_fft=640, entropy_n_fft=640)}
 
 
 def _nmse(got, want):
@@ -214,11 +215,12 @@ def test_process_long_off_the_view_geometry(n):
 @pytest.mark.parametrize("gap", list(GAPS))
 def test_process_long_in_the_view_geometry_gaps(gap):
     """View geometries K1 does not take leave the shard route and run K3 on
-    the device-formed frames; results equal the JAX package's XLA view
-    path under its mesh."""
+    the device-formed frames; 322/161, which K1 takes at any hop, keeps the
+    shard route; results equal the JAX package's XLA view path under its
+    mesh."""
     jbp = JBatchPipeline(jmake_mesh(8), JConfig(**GAPS[gap]))
     bp = port(jbp.pipe, 8, "shard", TConfig(**GAPS[gap]))
-    assert not bp._long_kernel
+    assert bp._long_kernel == (gap == "hop_161")
     c = bp.pipe.cfg
     sig = signal(1203, c.frame_size, c.hop_size)
     block, state, f0, conf = bp.process_long_pitch(sig)
@@ -232,9 +234,12 @@ GATE_CASES = {
     "default": ({}, True),
     "frame_400": (dict(frame_size=400, hop_size=160), False),
     "hann": (dict(window_type="hanning"), False),
-    "hop_161": (GAPS["hop_161"], False),
+    "hop_161": (GAPS["hop_161"], True),
     "n_fft_511": (GAPS["n_fft_511"], False),
     "entropy_1024": (GAPS["entropy_1024"], False),
+    "n_fft_640": (GAPS["n_fft_640"], False),
+    # a transform shorter than the frame (the dense bases wrap it around)
+    "n_fft_256": (dict(n_fft=256, entropy_n_fft=256), False),
     # the port's kernels are fp32 whatever precision says: no precision
     # gate, where the JAX package's shard route refuses "highest"
     "precision_highest": (dict(precision="highest"), True),

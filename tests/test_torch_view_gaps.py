@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""View geometries the view kernels do not take, on the CPU, against the
-JAX package's XLA view path.
+"""View geometries off the default one, on the CPU, against the JAX
+package's XLA view path.
 
 Frame = 2·hop with a strictly positive window routes to the view path in
-both packages. K1 also needs hop % 4 == 0, an even n_fft and a shared
-entropy spectrum; the port runs the view routes of the three geometries
-without them (322/161, 320/160 with n_fft 511, 320/160 with entropy_n_fft
-1024) through K3 on the frames formed on the device. K2 takes the pitch of
-all three on the rows view, as the JAX package's K2 does. Tolerances: zcr
+both packages. K1 takes any hop (322/161 reaches its wrapper), but it
+computes its spectrum by an FFT, so it also needs an n_fft that is a power
+of two in 256..2048 no shorter than the frame, the bases the configuration
+builds and a shared entropy spectrum; the port runs the view routes of the
+geometries without them (320/160 with n_fft 511, with n_fft 640, with
+entropy_n_fft 1024, or with a loaded ``wm`` of its own) through K3 on the
+frames formed on the device. K2 takes the pitch of all of them on the rows
+view, as the JAX package's K2 does. Tolerances: zcr
 EXACTLY equal, energy/entropy/mfcc NMSE <= 1e-9, VAD decisions and the state's integer scalars IDENTICAL, F0
 identical on every frame, confidence NMSE <= 1e-9.
 """
@@ -24,7 +27,10 @@ from sspv_tpu_torch.ops.pipeline import FeaturePipeline as TPipeline
 SR = 16000
 GAPS = {"hop_161": dict(frame_size=322, hop_size=161),
         "n_fft_511": dict(n_fft=511, entropy_n_fft=511),
-        "entropy_1024": dict(entropy_n_fft=1024)}
+        "entropy_1024": dict(entropy_n_fft=1024),
+        "n_fft_640": dict(n_fft=640, entropy_n_fft=640)}
+# the one of them K1 takes: its hop is no multiple of 4 (one-float loads)
+K1_TAKES = {"hop_161"}
 
 
 def _nmse(got, want):
@@ -143,30 +149,82 @@ def test_samples_dispatch_programs_match_jax(pipes, gap):
 
 
 def test_view_routes_take_k3_there(monkeypatch):
-    """The gap geometries never reach K1's wrapper (K3 computes their
-    features); K2 takes their pitch, hop 161 included."""
+    """The gap geometries K1 does not take never reach its wrapper (K3
+    computes their features); hop 161 does reach it; K2 takes the pitch of
+    all of them."""
     from sspv_tpu_torch.ops import pipeline as pipeline_mod
     from sspv_tpu_torch.ops import pitch as pitch_mod
 
-    calls = []
+    calls, k1_calls = [], []
     real_pitch = pitch_mod.fused_view_pitch
+    real_features = pipeline_mod.fused_view_features
 
-    def refuse(*a, **k):
-        raise AssertionError("K1 was called")
+    def counting_features(*a, **k):
+        k1_calls.append(1)
+        return real_features(*a, **k)
 
     def counting(*a, **k):
         calls.append(1)
         return real_pitch(*a, **k)
 
-    monkeypatch.setattr(pipeline_mod, "fused_view_features", refuse)
+    monkeypatch.setattr(pipeline_mod, "fused_view_features", counting_features)
     monkeypatch.setattr(pitch_mod, "fused_view_pitch", counting)
     sig = speech(SR, seed=5)
     for name, g in GAPS.items():
         calls.clear()
+        k1_calls.clear()
         tp = TPipeline(TConfig(**g), device="cpu")
         tp.process_signal_pitch_auto(sig)
         tp.process_signal_device(sig)
         assert len(calls) == 1, name
-    # the default geometry still takes K1
-    with pytest.raises(AssertionError):
-        TPipeline(device="cpu").process_signal_device(sig)
+        assert len(k1_calls) == (2 if name in K1_TAKES else 0), name
+    # the default geometry takes K1
+    TPipeline(device="cpu").process_signal_device(sig)
+    assert len(k1_calls) == 1
+
+
+def test_loaded_bases_leave_the_k1_route(monkeypatch):
+    """K1 computes the spectrum of the bases the configuration builds. A
+    pipeline whose ``load_constants`` brings another ``wm`` leaves its route
+    (K3's dense route computes the features from the loaded ``wc``/``ws``),
+    also through a ``BatchPipeline`` built before the load; loading the
+    configuration's own bases keeps the route."""
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.parallel import BatchPipeline, make_mesh
+
+    k1_calls = []
+    real_features = pipeline_mod.fused_view_features
+
+    def counting_features(*a, **k):
+        k1_calls.append(1)
+        return real_features(*a, **k)
+
+    monkeypatch.setattr(pipeline_mod, "fused_view_features", counting_features)
+    sig = speech(SR, seed=6)
+    tp = TPipeline(device="cpu")
+    bp = BatchPipeline(make_mesh(4, device="cpu"))
+    own = tp.constants()
+    tp.load_constants(own)
+    bp.load_constants(own)
+    assert tp._view_kernel_ok and bp._long_kernel
+    want, _ = tp.process_signal_device(sig)
+    assert len(k1_calls) == 1
+    scaled = dict(own, wm=own["wm"] * np.float32(1.5),
+                  wc=own["wc"] * np.float32(1.5), ws=own["ws"] * np.float32(1.5))
+    tp.load_constants(scaled)
+    bp.load_constants(scaled)
+    assert not tp._view_kernel_ok and not bp._long_kernel
+    assert tp._view_consts["n_fft"] is None and tp._frame_consts["n_fft"] is None
+    k1_calls.clear()
+    got, _ = tp.process_signal_device(sig)
+    long_block, _ = bp.process_long(sig)
+    assert not k1_calls
+    # the loaded bases were used: 1.5 x the amplitude, 2.25 x the power
+    # (log-mel and so c0 move by a constant; the entropy is scale-free)
+    assert _nmse(got.entropy, want.entropy) <= 1e-9
+    assert _nmse(long_block.entropy, want.entropy) <= 1e-9
+    shift = (got.mfcc[:, 0] - want.mfcc[:, 0]).numpy()
+    assert np.allclose(shift, shift[0], rtol=1e-3) and shift[0] > 1
+    tp.load_constants(own)
+    bp.load_constants(own)
+    assert tp._view_kernel_ok and bp._long_kernel
