@@ -60,7 +60,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dtypes, every kernel equal to its plain version on every input the runs
    gave it; it prints the corpus audio-s/s (host clock) split into decode,
    device and write time;
-9. times each kernel against its plain version at its main path's shape,
+9. drives the L1 ops, the ``SignalProcessing`` facade, the ``models``
+   transforms and the resampler on the card, with BOTH process-wide TF32
+   switches turned on around them (they scope float32 themselves): the
+   facade (device left at its default) on 600 s at 400/160 against the same
+   calls with ``SignalProcessing.device = "cpu"`` (ZCR equal, the rest
+   NMSE <= 1e-9) and against the oracle (NMSE <= 1e-5);
+   ``SpeechFrontend(400, 160).from_signal`` on the hour against K3's output
+   on the frames both have (NMSE <= 1e-9; ZCR within one ulp, equal as
+   counts); ``pitch_from_frames`` with ``acf_impl="direct"`` and ``"dft"``
+   and ``pitch_from_frames_amdf`` on the hour's raw 320/160 frames (median
+   F0 of the voiced stretches within 5 Hz of 130 for all three, direct and
+   dft picks equal on >= 99.9 % of them); ``resample_to_rate_device`` on
+   600 s made at 48 kHz and at 44.1 kHz against the host SciPy path
+   (>= 99.9 % of samples equal, none further than one LSB), the 48 kHz file
+   again through ``FileAudioSource`` with ``Config.TPU_DEVICE_RESAMPLE``
+   set (the device resampler must have run: ``ops.resample.CALLS``);
+   ``python -m sspv_tpu_torch.test_system`` and ``python -m
+   sspv_tpu_torch.demo`` as subprocesses (exit code 0); then the times of
+   each (CUDA events, medians of 10), the resampler's beside the same sum
+   as one ``F.conv1d`` (``resample_by_conv1d``, used nowhere in the port);
+10. times each kernel against its plain version at its main path's shape,
    and the end-to-end calls, with CUDA events (median of 10 calls each;
    beside K1, K3 and K2 the FFT stage alone through ``torch.fft``, a
    yardstick the port never calls), K1 and K2 also at 322/161:
@@ -68,7 +88,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
    its K3 launch and per-row VAD loop apart; and the engine's
    audio-seconds per second on the host clock;
-10. bounds each kernel by the least work of its function: the operations
+11. bounds each kernel by the least work of its function: the operations
     of the features or ACF computed with real FFTs and a sparse mel
     filterbank, or the bytes it must move, whichever takes longer; it also
     prints the bound of the kernels' own design: the same FFT operations
@@ -361,7 +381,7 @@ def frames_path(pipe, device, sig: np.ndarray, check_seconds: int) -> dict:
                      and np.array_equal(host(block.vad_adaptive[:vf]), ref_adp))
     print(f"frames-path vad equal to engine oracle: {vad_equal}")
     require(vad_equal, "frames-path VAD equals the engine oracle")
-    return {"launches": launches, "signal": sig_t,
+    return {"launches": launches, "signal": sig_t, "oracle": want,
             "frames": pipe._device_stream_frames(sig_t)}
 
 
@@ -800,11 +820,11 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
     return {"launches": launches, "ms": ms}
 
 
-def write_wav(path: Path, pcm: np.ndarray) -> str:
+def write_wav(path: Path, pcm: np.ndarray, rate: int = SR) -> str:
     with wave.open(str(path), "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
-        w.setframerate(SR)
+        w.setframerate(rate)
         w.writeframes(pcm.astype("<i2").tobytes())
     return str(path)
 
@@ -1057,6 +1077,271 @@ def batch_timings(device, sig: np.ndarray, card: str) -> dict:
     return out
 
 
+L1_SECONDS = 600  # the facade's and the resampler's share of the signal
+L1_RATES = (48000, 44100)  # file rates resampled to 16 kHz
+L1_REPS = 10
+INT16_EQUAL = 0.999  # share of resampled samples equal to the host path's
+
+
+@contextlib.contextmanager
+def tf32_switched_on():
+    """Both process-wide TF32 switches on, as a caller's
+    ``torch.set_float32_matmul_precision("high")`` would leave them: the L1
+    ops, the frontend modules and the resampler must scope float32
+    themselves."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def resample_by_conv1d(x, up: int, down: int):
+    """The resampler's strided correlation spelt as one ``F.conv1d``
+    (``stride=down``, ``up`` output channels, the ``(up, 1, W)`` weights) in
+    full float32: a yardstick for ``ops.resample._correlate``, which the
+    port never calls. ``x`` is a float32 ``(B, L)`` batch on the card."""
+    import torch
+
+    from sspv_tpu_torch.ops import resample
+    from sspv_tpu_torch.ops.fp32 import full_fp32
+
+    weights, s_lo, n_pre_remove = resample._polyphase_kernel(up, down)
+    w = torch.from_numpy(weights.T.copy()).to(x.device)[:, None, :]
+    n_out = resample.resample_output_len(x.shape[1], up, down)
+    groups = -(-(n_pre_remove + n_out) // up)
+    total = (groups - 1) * down + w.shape[2]
+    p = torch.nn.functional.pad(x, (-s_lo, max(0, total + s_lo - x.shape[1])))
+    # cuDNN's switch for its own kernels, the matmul setting for the
+    # im2col + GEMM path that PyTorch takes for some shapes
+    with full_fp32(x), torch.backends.cudnn.flags(allow_tf32=False):
+        out = torch.nn.functional.conv1d(p[:, None, :total], w, stride=down)
+    flat = out.transpose(1, 2).reshape(x.shape[0], groups * up)
+    return flat[:, n_pre_remove : n_pre_remove + n_out]
+
+
+def int16_parity(label: str, got: np.ndarray, want: np.ndarray) -> None:
+    require(got.dtype == np.int16 and got.shape == want.shape,
+            f"{label}: int16 of the host path's length")
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    equal = float((diff == 0).mean())
+    print(f"{label}: {got.shape[0]} samples, {equal:.6f} equal to the host "
+          f"SciPy path, max |diff| {int(diff.max())} LSB")
+    require(equal >= INT16_EQUAL and diff.max() <= 1,
+            f"{label}: >= 99.9 % equal, none further than one LSB")
+
+
+def median_ms(fn, reps: int = L1_REPS) -> float:
+    return float(np.median(time_ms(fn, reps)))
+
+
+def l1_runs(device, sig: np.ndarray, pipe400, frames_run, card: str) -> dict:
+    """The L1 ops, the facade, the frontend modules and the resampler on
+    the card (module docstring, step 9). Returns the times in ms."""
+    import torch
+
+    from sspv_tpu_torch import Config, SignalProcessing, models, ops
+    from sspv_tpu_torch.ops import LAUNCHES, resample
+    from sspv_tpu_torch.ops import frame_kernels as fk
+    from sspv_tpu_torch.runtime.audio_source import (FileAudioSource,
+                                                     _resample_to)
+    from sspv_tpu_torch.signal_processing import on_device
+    from sspv_tpu_torch.utils.synth import synth_signal
+
+    reset_launches()
+    resample.CALLS["resample"] = 0
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    children = {
+        name: subprocess.Popen(
+            [sys.executable, "-m", "sspv_tpu_torch." + name], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        for name in ("test_system", "demo")
+    }
+    ms: dict = {}
+    with contextlib.ExitStack() as stack:
+        for child in children.values():  # no child outlives a failed check
+            stack.callback(child.kill)
+        stack.enter_context(tf32_switched_on())
+
+        # -- the facade, its device left at the default ----------------------
+        require(SignalProcessing.device == "cuda", "the facade's default device")
+        head = sig[: L1_SECONDS * SR]
+
+        def facade(frames=None) -> dict:
+            if frames is None:
+                frames = SignalProcessing.framing(head, ASR_FRAME, HOP)
+            return {
+                "frames": frames,
+                "energy": SignalProcessing.calculate_short_time_energy(frames),
+                "zcr": SignalProcessing.calculate_zero_crossing_rate(frames),
+                "mfcc": SignalProcessing.compute_mfcc(frames, SR, lifter=22),
+                "entropy": SignalProcessing.calculate_spectral_entropy(frames),
+            }
+
+        got = facade()
+        with on_device("cpu"):
+            cpu = facade()
+        want = frames_run["oracle"]
+        vf = want["energy"].shape[0]
+        require(got["frames"].shape == (vf + 1, ASR_FRAME)
+                and all(isinstance(v, np.ndarray) for v in got.values()),
+                "facade: NumPy out, the padded frame count")
+        require(np.array_equal(got["frames"], cpu["frames"])
+                and np.array_equal(got["zcr"], cpu["zcr"]),
+                "facade: framing and ZCR on the card equal the CPU's")
+        vs_cpu = {k: nmse(got[k], cpu[k]) for k in ("energy", "mfcc", "entropy")}
+        vs_oracle = {k: nmse(got[k][:vf], want[k])
+                     for k in ("energy", "zcr", "mfcc", "entropy")}
+        print(f"facade on the card, {vf + 1} frames of {ASR_FRAME}/{HOP}: nmse "
+              f"vs the facade on the CPU {json.dumps(vs_cpu)}, vs the oracle "
+              f"{json.dumps(vs_oracle)}")
+        require(max(vs_cpu.values()) <= NMSE_KERNEL, "facade: card vs CPU")
+        require(max(vs_oracle.values()) <= NMSE_ORACLE, "facade: vs the oracle")
+
+        # -- the frontend modules beside K3 ----------------------------------
+        sig_t = frames_run["signal"]
+        frontend = models.SpeechFrontend(frame_size=ASR_FRAME, hop_size=HOP,
+                                         device=device)
+        out = frontend.from_signal(sig_t)
+        k3 = fk.fused_features(frames_run["frames"], **pipe400._frame_consts)
+        n = k3["energy"].shape[0]
+        require(out["energy"].shape[0] - n in (0, 1) and out["mfcc"].shape[1] == 13
+                and out["mfcc"].device.type == "cuda", "frontend: shapes, on the card")
+        vs_k3 = {k: nmse(host(out[k][:n]), host(k3[k]))
+                 for k in ("energy", "entropy", "mfcc")}
+        a, b = host(out["zcr"][:n]), host(k3["zcr"])
+        ulp = bool(np.all(np.abs(a - b) <= np.spacing(np.maximum(a, b))))
+        counts = bool(np.array_equal(np.rint(a * ASR_FRAME), np.rint(b * ASR_FRAME)))
+        print(f"SpeechFrontend on {n} frames vs K3: nmse {json.dumps(vs_k3)}, "
+              f"zcr within one ulp {ulp} (differing on {int((a != b).sum())} "
+              f"frames), equal as counts {counts}")
+        require(max(vs_k3.values()) <= NMSE_KERNEL, "frontend vs K3")
+        require(ulp and counts, "frontend ZCR: one ulp from K3's, equal as counts")
+        del out, k3
+
+        # -- three pitch estimators on the hour's raw frames ------------------
+        raw = ops.frame_signal(sig_t, 320, 160)
+        t_mid = (torch.arange(raw.shape[0], device=device) * 160 + 160) / SR
+        seg = (t_mid * 2).long() % 4
+        # frames wholly inside a voiced half second
+        voiced = (seg == 1) & (((t_mid - 0.01) * 2).long() % 4 == 1) \
+            & (((t_mid + 0.01) * 2).long() % 4 == 1)
+        estimators = {
+            "pitch_direct": lambda: ops.pitch_from_frames(raw, SR, acf_impl="direct"),
+            "pitch_dft": lambda: ops.pitch_from_frames(raw, SR, acf_impl="dft"),
+            "pitch_amdf": lambda: ops.pitch_from_frames_amdf(raw, SR),
+        }
+        f0s, peak = {}, {}
+        for name, fn in estimators.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            f0s[name], _ = fn()
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**20
+            median = float(f0s[name][voiced].median())
+            print(f"{name}: {raw.shape[0]} frames, {int(voiced.sum())} voiced, "
+                  f"median voiced f0 {median:.3f} Hz, peak memory above the "
+                  f"frames {peak[name]:.0f} MiB")
+            require(abs(median - 130.0) < 5.0, f"{name}: median f0 near 130 Hz")
+        same = f0s["pitch_direct"] == f0s["pitch_dft"]
+        share = float(same[voiced].float().mean())
+        print(f"direct vs dft picks equal on {share:.6f} of the voiced frames, "
+              f"{float(same.float().mean()):.6f} of all")
+        require(share >= F0_MATCH, "direct and dft ACF pick the same lags")
+        del f0s
+
+        # -- the resampler ----------------------------------------------------
+        pcm, dev_out = {}, {}
+        for rate in L1_RATES:
+            pcm[rate] = synth_signal(L1_SECONDS, rate).astype(np.int16)
+            t0 = time.perf_counter()
+            want16 = _resample_to(pcm[rate], rate, SR)
+            ms[f"resample_{rate}_host_scipy"] = (time.perf_counter() - t0) * 1e3
+            calls = resample.CALLS["resample"]
+            dev_out[rate] = resample.resample_to_rate_device(pcm[rate], rate, SR)
+            require(resample.CALLS["resample"] == calls + 1,
+                    "the device resampler ran")
+            int16_parity(f"resample {rate} -> {SR} on the card", dev_out[rate],
+                         want16)
+            up, down = SR // math.gcd(SR, rate), rate // math.gcd(SR, rate)
+            x = torch.from_numpy(pcm[rate]).to(device).to(torch.float32)[None, :]
+            require(nmse(host(resample_by_conv1d(x, up, down)),
+                         host(resample._correlate(x, up, down))) <= 1e-12,
+                    "the resampler agrees with the conv1d form of its sum")
+            del x
+        rate = L1_RATES[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = write_wav(Path(tmp) / "l1.wav", pcm[rate], rate)
+            before = Config.TPU_DEVICE_RESAMPLE
+            Config.TPU_DEVICE_RESAMPLE = True
+            try:
+                calls = resample.CALLS["resample"]
+                src = FileAudioSource(path, sample_rate=SR)
+                src.open()
+                from_file = src.read(1 << 62)
+                src.close()
+            finally:
+                Config.TPU_DEVICE_RESAMPLE = before
+        require(resample.CALLS["resample"] == calls + 1,
+                "FileAudioSource resampled on the card")
+        require(np.array_equal(from_file, dev_out[rate]),
+                "FileAudioSource gives the device resampler's samples")
+        print(f"FileAudioSource({rate} Hz file, sample_rate={SR}) with "
+              f"TPU_DEVICE_RESAMPLE: device resampler calls "
+              f"{resample.CALLS['resample']}, launches {json.dumps(dict(LAUNCHES))}")
+
+        # -- the entry points, each in a process of its own -------------------
+        for name, child in children.items():
+            text, _ = child.communicate(timeout=300)
+            tail = " | ".join(text.strip().splitlines()[-2:])
+            print(f"python -m sspv_tpu_torch.{name}: exit {child.returncode}: {tail}")
+            require(child.returncode == 0, f"{name} exits 0 on the card")
+
+        # -- times: CUDA events, medians of L1_REPS, nothing else on the card --
+        frames400 = got["frames"]
+        ms.update({
+            "facade_framing": median_ms(
+                lambda: SignalProcessing.framing(head, ASR_FRAME, HOP)),
+            "facade_energy": median_ms(
+                lambda: SignalProcessing.calculate_short_time_energy(frames400)),
+            "facade_zcr": median_ms(
+                lambda: SignalProcessing.calculate_zero_crossing_rate(frames400)),
+            "facade_mfcc": median_ms(
+                lambda: SignalProcessing.compute_mfcc(frames400, SR, lifter=22)),
+            "facade_entropy": median_ms(
+                lambda: SignalProcessing.calculate_spectral_entropy(frames400)),
+            "frontend_from_signal": median_ms(lambda: frontend.from_signal(sig_t)),
+        })
+        for name, fn in estimators.items():
+            ms[name] = median_ms(fn)
+            ms[name + "_peak_mib"] = peak[name]
+        for rate in L1_RATES:
+            up, down = SR // math.gcd(SR, rate), rate // math.gcd(SR, rate)
+            x = torch.from_numpy(pcm[rate]).to(device).to(torch.float32)[None, :]
+            ms[f"resample_{rate}_matmul"] = median_ms(
+                lambda: resample._correlate(x, up, down))
+            ms[f"resample_{rate}_conv"] = median_ms(
+                lambda: resample_by_conv1d(x, up, down))
+            ms[f"resample_{rate}_to_rate_device"] = median_ms(
+                lambda: resample.resample_to_rate_device(pcm[rate], rate, SR))
+            del x
+    print(f"L1 ms on {card} (medians of {L1_REPS}, CUDA events; facade and "
+          f"resample_*_to_rate_device from host arrays, transfers included; "
+          f"frontend and pitch on the hour, device-resident; resample_*_matmul "
+          f"is the port's correlation, resample_*_conv the conv1d yardstick "
+          f"the port never calls; *_host_scipy one call on the host clock): "
+          + json.dumps(ms))
+    return ms
+
+
 def time_ms(fn, reps: int = 5) -> list[float]:
     """Device milliseconds of ``reps`` warm calls of ``fn``, each between
     its own pair of CUDA events (the gap a host-bound call leaves on the
@@ -1296,6 +1581,7 @@ def main() -> int:
     long_run = long_runs(pipe, device, main["rows"], err)
     gap_runs(device, main["signal"], err, card)
     corpus_runs(device, main["signal"], err, card)
+    l1_runs(device, main["signal"], pipe400, frames_run, card)
 
     ms = timings(pipe, main["rows"], pipe400, frames_run, card)
     long_ms = long_timings(long_run, main["rows"], card)

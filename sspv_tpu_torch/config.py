@@ -143,9 +143,10 @@ class Config:
     TPU_ENGINE_PITCH = False
     # Confidence gate of the engine's pitch track.
     TPU_ENGINE_PITCH_MIN_CONF = 0.3
-    # On-device resampling of whole files is not ported: with this set, a
-    # resample of at least TPU_DEVICE_RESAMPLE_MIN_SECONDS raises
-    # NotImplementedError instead of running on the host.
+    # On-device resampling of whole files (ops/resample.py): with this set,
+    # a resample of at least TPU_DEVICE_RESAMPLE_MIN_SECONDS of audio runs
+    # on the card, shorter arrays on the host through SciPy. A failure of
+    # the device call raises; nothing falls back to the host.
     TPU_DEVICE_RESAMPLE = False
     TPU_DEVICE_RESAMPLE_MIN_SECONDS = 1.0
 

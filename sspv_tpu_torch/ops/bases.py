@@ -28,6 +28,7 @@ import numpy as np
 
 __all__ = [
     "mel_filterbank_np",
+    "dft_bases",
     "windowed_dft_bases",
     "merged_windowed_dft_bases",
     "dct_ortho_matrix",
@@ -104,6 +105,14 @@ def _dft_bases_cached(frame_size: int, n_fft: int) -> tuple[np.ndarray, np.ndarr
     cos_b[:n_used] = np.cos(ang)
     sin_b[:n_used] = np.sin(ang)
     return cos_b.astype(np.float32), sin_b.astype(np.float32)
+
+
+def dft_bases(frame_size: int, n_fft: int) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) rDFT bases: ``spectrum = x @ cos + 1j * (x @ sin)``."""
+    c, s = _dft_bases_cached(int(frame_size), int(n_fft))
+    # copies, like every sibling helper: a caller that mutates a returned
+    # basis must not poison the cache
+    return c.copy(), s.copy()
 
 
 @functools.lru_cache(maxsize=16)

@@ -1,10 +1,16 @@
-"""Spectral tail of the feature path in PyTorch: mel -> log -> DCT ->
-lifter and the spectral entropy, from an already computed power spectrum.
+"""Frequency-domain features (Mel filterbank, MFCC, spectral entropy) and
+the spectral tail of the feature path, in PyTorch.
 
-Counterparts: ``entropy_from_power`` (``sspv_tpu/ops/frequency_features.py:
-102``) and ``FeaturePipeline._spectral_tail`` (``sspv_tpu/ops/pipeline.py:
-349``). These are the plain versions' tail; the CUDA kernel carries its own
-fused copy.
+Counterpart of ``sspv_tpu/ops/frequency_features.py``: ``mel_filterbank``
+(:37), ``power_spectrum`` (:48, ``|rfft(frames, n_fft)|**2`` through
+``torch.fft.rfft``), ``compute_mfcc`` (:55: filterbank product clamped at
+1e-10, natural log, orthonormal DCT-II truncated to ``num_ceps``),
+``calculate_spectral_entropy`` (:93) and ``entropy_from_power`` (:102);
+``spectral_tail`` is ``FeaturePipeline._spectral_tail``
+(``sspv_tpu/ops/pipeline.py:349``), the tail of the kernels' plain versions
+(the CUDA kernels carry their own fused copy). The functions that take
+frames run on the device of the frames, in float32 whatever the process's
+TF32 switches say (``fp32.full_fp32``).
 """
 
 from __future__ import annotations
@@ -12,7 +18,64 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["entropy_from_power", "spectral_tail"]
+from . import bases
+from .fp32 import full_fp32
+
+__all__ = [
+    "calculate_spectral_entropy",
+    "compute_mfcc",
+    "entropy_from_power",
+    "mel_filterbank",
+    "power_spectrum",
+    "spectral_tail",
+]
+
+
+def mel_filterbank(num_filters: int, n_fft: int, sample_rate: int,
+                   fmin: float = 0.0, fmax: float | None = None, *,
+                   device="cuda") -> torch.Tensor:
+    """Mel filterbank matrix, ``(num_filters, n_fft//2 + 1)`` float32, on
+    ``device``."""
+    return torch.from_numpy(
+        bases.mel_filterbank_np(num_filters, n_fft, sample_rate, fmin, fmax)
+    ).to(device)
+
+
+def power_spectrum(frames: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """``|rfft(frames, n_fft)|**2`` as float32, shape ``(.., n_fft//2+1)``
+    (a frame longer than ``n_fft`` is truncated, as ``rfft(n=...)`` does)."""
+    spec = torch.fft.rfft(frames.to(torch.float32), n=n_fft)
+    return spec.real ** 2 + spec.imag ** 2
+
+
+def compute_mfcc(frames: torch.Tensor, sample_rate: int, n_fft: int = 512,
+                 num_filters: int = 26, num_ceps: int = 13, fmin: float = 0.0,
+                 fmax: float | None = None) -> torch.Tensor:
+    """MFCC matrix, shape ``(num_frames, num_ceps)`` float32."""
+    x = frames.to(torch.float32)
+    if x.numel() == 0:
+        # the empty return keeps the CALLER's num_ceps; the clamp below
+        # applies on the non-empty path only (a length-N DCT-II has N
+        # coefficients)
+        return x.new_zeros((0, int(num_ceps)))
+    num_ceps = min(int(num_ceps), int(num_filters))
+    power = power_spectrum(x, n_fft)
+    fb_t = torch.from_numpy(np.ascontiguousarray(
+        bases.mel_filterbank_np(num_filters, n_fft, sample_rate, fmin, fmax).T
+    )).to(x.device)
+    dct = torch.from_numpy(
+        bases.dct_ortho_matrix(num_filters, num_ceps)).to(x.device)
+    with full_fp32(x):
+        return torch.log((power @ fb_t).clamp_min(1e-10)) @ dct
+
+
+def calculate_spectral_entropy(frames: torch.Tensor,
+                               n_fft: int = 512) -> torch.Tensor:
+    """Normalized spectral entropy in [0, 1], shape ``(num_frames,)``."""
+    x = frames.to(torch.float32)
+    if x.numel() == 0:
+        return x.new_zeros((0,))
+    return entropy_from_power(power_spectrum(x, n_fft))
 
 
 def entropy_from_power(psd: torch.Tensor) -> torch.Tensor:

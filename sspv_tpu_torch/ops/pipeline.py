@@ -579,6 +579,7 @@ class FeaturePipeline:
         return dict(
             frame_size=c.frame_size, hop_size=c.hop_size,
             sample_rate=c.sample_rate, fmin=fmin, fmax=fmax,
+            acf_impl="dft",
             bases=self._acf_bases(self._lag_max(fmin, fmax)),
         )
 
@@ -745,7 +746,7 @@ class FeaturePipeline:
         ``pipeline.py:568``) and of :meth:`stream_pitch`."""
         return pitch_track_gated(
             frames, gate_vad, min_conf, sample_rate=self.cfg.sample_rate,
-            fmin=fmin, fmax=fmax,
+            fmin=fmin, fmax=fmax, acf_impl="dft",
         )
 
     def _packed_block_core(self, frames_raw, packed_state, n_valid: int):

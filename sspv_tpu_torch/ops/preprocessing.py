@@ -1,13 +1,17 @@
-"""Framing of a 1-D signal into overlapping raw frames, in PyTorch.
+"""Pre-emphasis, and framing of a 1-D signal into overlapping frames, in
+PyTorch.
 
-Counterpart of ``sspv_tpu/ops/preprocessing.py:47-119``:
+Counterpart of ``sspv_tpu/ops/preprocessing.py:37-133``:
 
+- ``preemphasis``: ``concat([x[0], x[1:] - alpha*x[:-1]])`` over the last
+  axis, float32;
+- ``framing``: ``frame_signal`` then the analysis window;
 - ``num_frames_for``: the reference frame count ``1 + ceil((L - N)/H)``;
 - ``frame_signal``: the batch contract, ``num_frames_for`` frames with the
   tail zero-padded;
 - ``stream_frames``: the streaming engine's contract, full frames only.
 
-Both run on the device of the signal. When ``frame_size % hop_size == 0``
+All run on the device of the signal. When ``frame_size % hop_size == 0``
 the frames are ``frame_size // hop_size`` shifted slices of the
 ``(hops, hop)`` reshape, concatenated (strided copies); otherwise one gather.
 """
@@ -18,7 +22,20 @@ import math
 
 import torch
 
-__all__ = ["frame_signal", "num_frames_for", "stream_frames"]
+from .windows import get_window
+
+__all__ = ["frame_signal", "framing", "num_frames_for", "preemphasis",
+           "stream_frames"]
+
+
+def preemphasis(signal: torch.Tensor, alpha: float = 0.97) -> torch.Tensor:
+    """First-order high-pass pre-emphasis filter over the last axis."""
+    x = signal.to(torch.float32)
+    if x.shape[-1] == 0:
+        return x
+    # alpha as a float32 tensor: the product is float32 times float32
+    a = torch.tensor(alpha, dtype=torch.float32, device=x.device)
+    return torch.cat([x[..., :1], x[..., 1:] - a * x[..., :-1]], dim=-1)
 
 
 def num_frames_for(signal_length: int, frame_size: int, hop_size: int) -> int:
@@ -67,3 +84,14 @@ def stream_frames(signal: torch.Tensor, frame_size: int,
         return x.new_zeros((0, max(frame_size, 0)))
     n = 1 + (length - frame_size) // hop_size
     return _frames(x, n, frame_size, hop_size)
+
+
+def framing(signal: torch.Tensor, frame_size: int, hop_size: int,
+            window_type: str = "hamming") -> torch.Tensor:
+    """Frame (zero-padded tail) and window a 1-D signal:
+    ``(num_frames_for(len), frame_size)`` float32."""
+    frames = frame_signal(signal, frame_size, hop_size)
+    if frames.shape[0] == 0:
+        return frames
+    window = torch.from_numpy(get_window(window_type, frame_size))
+    return frames * window.to(frames.device)

@@ -1,10 +1,24 @@
-"""The Wiener-Khinchin short-time ACF of the pitch path.
+"""Time-domain features over ``(num_frames, frame_size)`` batches, and the
+Wiener-Khinchin short-time ACF of the pitch path.
 
-Host-built (NumPy) bases: the port's copy of ``_acf_dft_bases`` /
-``_acf_dft_bases_merged`` from ``sspv_tpu/ops/time_features.py:70-129``,
-held bit-identical to them by ``tests/test_torch_bases.py``; ``acf_bases``
-uploads them once per band and device. ``autocorrelation_via_dft``
-(``time_features.py:133``) is the ACF of raw frames as three matmuls.
+Counterpart of ``sspv_tpu/ops/time_features.py``. Every function runs on the
+device of its ``frames`` tensor, in float32:
+
+- short-time energy ``sum(frames**2)`` (:35);
+- zero-crossing rate: sign changes (``sign`` semantics: a zero is its own
+  level; no DC removal, no /2) divided by the frame length (:43). This is
+  a true float32 division, as the eager JAX function computes it; the
+  pipeline's kernels multiply by the float32 reciprocal instead (what XLA
+  compiles), one ulp apart for some counts;
+- the direct sliding-sum ACF at lags ``0..max_lag`` (:54) and the AMDF at
+  lags ``lag_start..max_lag`` (:167): one slice product per lag, written
+  into a preallocated ``(F, lags)`` result so that only one ``(F, frame)``
+  temporary lives at a time;
+- ``autocorrelation_via_dft`` (:133): the ACF of raw frames as three
+  matmuls over host-built (NumPy) bases, the port's copy of
+  ``_acf_dft_bases`` / ``_acf_dft_bases_merged`` (:70-129), held
+  bit-identical to them by ``tests/test_torch_bases.py``; ``acf_bases``
+  uploads them once per band and device.
 """
 
 from __future__ import annotations
@@ -14,12 +28,83 @@ import functools
 import numpy as np
 import torch
 
+from .fp32 import full_fp32
+
 __all__ = [
     "_acf_dft_bases",
     "_acf_dft_bases_merged",
     "acf_bases",
     "autocorrelation_via_dft",
+    "calculate_average_magnitude_difference",
+    "calculate_short_time_autocorrelation",
+    "calculate_short_time_energy",
+    "calculate_zero_crossing_rate",
 ]
+
+
+def _f32(frames: torch.Tensor) -> torch.Tensor:
+    return frames if frames.dtype == torch.float32 else frames.to(torch.float32)
+
+
+def calculate_short_time_energy(frames: torch.Tensor) -> torch.Tensor:
+    """Per-frame short-time energy, float32, shape ``(num_frames,)``."""
+    x = _f32(frames)
+    if x.numel() == 0:
+        return x.new_zeros((0,))
+    return (x * x).sum(dim=-1)
+
+
+def zero_crossing_rate(x: torch.Tensor) -> torch.Tensor:
+    """Sign changes along the last axis over its length, as a true float32
+    division: the divisor is a tensor on the device, because a Python
+    scalar divisor becomes a multiply by the reciprocal on CUDA."""
+    signs = torch.sign(x)
+    crossings = (signs[..., 1:] != signs[..., :-1]).sum(dim=-1)
+    size = torch.full((), float(x.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    return crossings.to(torch.float32) / size
+
+
+def calculate_zero_crossing_rate(frames: torch.Tensor) -> torch.Tensor:
+    """Per-frame zero-crossing rate, float32, shape ``(num_frames,)``."""
+    x = _f32(frames)
+    if x.numel() == 0:
+        return x.new_zeros((0,))
+    return zero_crossing_rate(x)
+
+
+def calculate_short_time_autocorrelation(frames: torch.Tensor,
+                                         max_lag: int) -> torch.Tensor:
+    """Short-time autocorrelation ``R[:, lag] = sum(frames[:, :-lag] *
+    frames[:, lag:])`` for lags ``0..max_lag``: ``(num_frames, max_lag + 1)``
+    float32."""
+    x = _f32(frames)
+    num_frames = x.shape[0] if x.dim() == 2 else 0
+    if num_frames == 0 or x.numel() == 0 or max_lag < 0:
+        return x.new_zeros((num_frames, max(0, max_lag + 1)))
+    out = x.new_empty((num_frames, max_lag + 1))
+    for lag in range(max_lag + 1):
+        a = x if lag == 0 else x[:, :-lag]
+        torch.sum(a * x[:, lag:], dim=1, out=out[:, lag])
+    return out
+
+
+def calculate_average_magnitude_difference(frames: torch.Tensor, max_lag: int,
+                                           lag_start: int = 1) -> torch.Tensor:
+    """Average magnitude difference ``mean(|frames[:, :-lag] - frames[:,
+    lag:]|)`` for lags ``lag_start..max_lag``: ``(num_frames, max_lag -
+    lag_start + 1)`` float32. ``lag_start=1`` is the historical surface; the
+    AMDF pitch tracker starts at its band's first lag."""
+    x = _f32(frames)
+    num_frames = x.shape[0] if x.dim() == 2 else 0
+    lag_start = max(1, int(lag_start))
+    if num_frames == 0 or x.numel() == 0 or max_lag < lag_start:
+        return x.new_zeros((num_frames, max(0, max_lag - lag_start + 1)))
+    out = x.new_empty((num_frames, max_lag - lag_start + 1))
+    for lag in range(lag_start, max_lag + 1):
+        torch.mean((x[:, :-lag] - x[:, lag:]).abs_(), dim=1,
+                   out=out[:, lag - lag_start])
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -104,7 +189,8 @@ def autocorrelation_via_dft(frames: torch.Tensor, max_lag: int,
         else acf_bases(x.shape[1], int(max_lag), x.device)
     )
     half = merged.shape[1] // 2
-    m = x @ merged
-    nyq = x @ nyq_b
-    power = m[:, :half] * m[:, :half] + m[:, half:] * m[:, half:]
-    return power @ inv_live + (nyq * nyq)[:, None] * inv_nyq[None, :]
+    with full_fp32(x):  # float32 whatever the process's TF32 switches say
+        m = x @ merged
+        nyq = x @ nyq_b
+        power = m[:, :half] * m[:, :half] + m[:, half:] * m[:, half:]
+        return power @ inv_live + (nyq * nyq)[:, None] * inv_nyq[None, :]

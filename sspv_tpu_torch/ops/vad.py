@@ -1,8 +1,16 @@
-"""The streaming composite VAD of the runtime engine, as parallel prefix
-computations in PyTorch.
+"""Voice-activity detection in PyTorch: the fixed and the adaptive frame
+masks, and the streaming composite VAD of the runtime engine as parallel
+prefix computations.
 
-Counterpart of ``sspv_tpu/ops/vad.py:124-530``. Semantics per frame t
-(reference engine.py:253-288):
+Counterpart of ``sspv_tpu/ops/vad.py``. ``voice_activity_detection`` (:68)
+is the fixed dual-threshold mask ``(E > T_E) & (Z < T_Z)``;
+``adaptive_voice_activity_detection`` (:80) blends one threshold pair from
+the means of a history and of the current batch, in float32 like its JAX
+counterpart. ``hangover_smooth_scan`` (:367) is the engine's sequential
+automaton, kept as the oracle of ``hangover_smooth``.
+
+The streaming VAD (:124-530), semantics per frame t (reference
+engine.py:253-288):
 
 1. ``vad_initial = (E>T_E) & ((Z<T_Z) | (H<T_H))``;
 2. ``vad_adaptive``: thresholds blended from the mean of the previous
@@ -36,7 +44,9 @@ import torch
 
 __all__ = [
     "VadState",
+    "adaptive_voice_activity_detection",
     "hangover_smooth",
+    "hangover_smooth_scan",
     "initial_packed_state",
     "initial_states",
     "initial_vad_state",
@@ -47,9 +57,62 @@ __all__ = [
     "unstack_states",
     "vad_state_from_numpy",
     "vad_state_to_numpy",
+    "voice_activity_detection",
 ]
 
 _NEG_LARGE = -(2**30)
+
+
+def voice_activity_detection(energy: torch.Tensor, zcr: torch.Tensor,
+                             energy_threshold: float,
+                             zcr_threshold: float) -> torch.Tensor:
+    """Fixed dual-threshold VAD mask (True == voice; voiced frames have a
+    LOW zero-crossing rate). The thresholds compare as float32."""
+    e = energy.to(torch.float32)
+    z = zcr.to(torch.float32)
+    return (e > float(np.float32(energy_threshold))) & (
+        z < float(np.float32(zcr_threshold)))
+
+
+def adaptive_voice_activity_detection(
+    energy: torch.Tensor,
+    zcr: torch.Tensor,
+    energy_history,
+    zcr_history,
+    alpha: float = 0.8,
+    min_energy_threshold: float = 1e-6,
+    max_zcr_threshold: float = 0.5,
+) -> torch.Tensor:
+    """Adaptive VAD over a batch: one threshold pair from blended means.
+
+    ``energy_history``/``zcr_history`` are 1-D sequences of past per-frame
+    values (empty or None falls back to the current batch mean). Everything
+    is float32 on the device of ``energy``, as in the JAX function: a frame
+    exactly at its threshold may flip with the order of the mean's sum (the
+    streaming VAD below decides in float64 instead)."""
+    e = energy.to(torch.float32)
+    z = zcr.to(torch.float32)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.float32, device=e.device)
+
+    cur_e = e.mean() if e.numel() else scalar(0.0)
+    cur_z = z.mean() if z.numel() else scalar(0.0)
+
+    def hist_mean(hist, cur):
+        if hist is None:
+            return cur
+        h = torch.as_tensor(hist, dtype=torch.float32, device=e.device)
+        return h.mean() if h.numel() else cur
+
+    hist_e = hist_mean(energy_history, cur_e)
+    hist_z = hist_mean(zcr_history, cur_z)
+    a = scalar(max(0.0, min(float(alpha), 0.99)))
+    e_th = torch.maximum(scalar(min_energy_threshold),
+                         a * hist_e + (1 - a) * cur_e)
+    z_th = torch.minimum(scalar(max_zcr_threshold),
+                         a * hist_z + (1 - a) * cur_z)
+    return (e > e_th) & (z < z_th)
 
 
 class VadState(NamedTuple):
@@ -232,6 +295,33 @@ def hangover_smooth(vad_initial, last_voiced, hangover_on: int,
     vad = ((idx - last) < on + max(off, 1)).to(torch.int32)
     new_last_voiced = last[-1] - f if f else last_voiced
     return vad, new_last_voiced
+
+
+def hangover_smooth_scan(vad_initial, hold0, silence_run0, hangover_on: int,
+                         release_off: int):
+    """Exact transliteration of the engine's sequential automaton
+    (engine.py:275-288), the oracle of :func:`hangover_smooth`. It is on no
+    main path: the loop runs over a host copy of the decisions, and the
+    outputs return on the device of ``vad_initial``. Returns
+    ``(vad int32, (hold, silence_run))``, the carries as int32 scalars."""
+    on, off = int(hangover_on), int(release_off)
+    hold, run = int(hold0), int(silence_run0)
+    out = []
+    for v in vad_initial.cpu().tolist():
+        if v:
+            hold, run, o = max(hold, on), 0, 1
+        elif hold > 0:
+            hold, run, o = hold - 1, 0, 1
+        else:
+            run += 1
+            hold, o = 0, 0 if run >= off else 1
+        out.append(o)
+    dev = vad_initial.device
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    return i32(out).reshape(len(out)), (i32(hold), i32(run))
 
 
 def streaming_vad(

@@ -274,7 +274,7 @@ class BatchPipeline:
         kw = pipe._pitch_kwargs(fmin, fmax)
         if f == 0 or c.frame_size != 2 * c.hop_size:
             f0, conf = pitch_from_frames(frames, c.sample_rate, fmin, fmax,
-                                         bases=kw["bases"])
+                                         acf_impl="dft", bases=kw["bases"])
             return f0.reshape(per, f), conf.reshape(per, f)
         hop = c.hop_size
         lag_min, lag_max = _lag_band(c.sample_rate, fmin, fmax, c.frame_size)

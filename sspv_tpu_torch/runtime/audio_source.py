@@ -274,13 +274,13 @@ class PlaylistAudioSource(AudioSource):
 
 
 def _resample_to(arr: np.ndarray, src_sr: int, dst_sr: int) -> np.ndarray:
-    """Polyphase resample to ``dst_sr`` on the host (SciPy), clipped back
-    to int16.
+    """Polyphase resample to ``dst_sr``, clipped back to int16.
 
-    On-device resampling is not ported: with ``Config.TPU_DEVICE_RESAMPLE``
-    set, an array of at least ``TPU_DEVICE_RESAMPLE_MIN_SECONDS`` of audio
-    (what the JAX package would send to the device) raises
-    ``NotImplementedError`` rather than quietly running on the host.
+    With ``Config.TPU_DEVICE_RESAMPLE`` set, whole-file-sized arrays (at
+    least ``TPU_DEVICE_RESAMPLE_MIN_SECONDS`` of audio) run on the card
+    (``ops/resample.py``, SciPy parity); anything shorter takes the host
+    SciPy path, so per-chunk callers never pay a round trip to the device.
+    A failure of the device call raises: nothing falls back to the host.
     """
     if src_sr == dst_sr:
         return arr.astype(np.int16, copy=False)
@@ -289,10 +289,9 @@ def _resample_to(arr: np.ndarray, src_sr: int, dst_sr: int) -> np.ndarray:
     if bool(Config.TPU_DEVICE_RESAMPLE) and arr.size >= int(
         float(Config.TPU_DEVICE_RESAMPLE_MIN_SECONDS) * src_sr
     ):
-        raise NotImplementedError(
-            "TPU_DEVICE_RESAMPLE: on-device resampling is not ported; unset "
-            "it to resample on the host"
-        )
+        from ..ops.resample import resample_to_rate_device
+
+        return resample_to_rate_device(arr, int(src_sr), int(dst_sr))
     import scipy.signal as sps
 
     g = math.gcd(int(src_sr), int(dst_sr))

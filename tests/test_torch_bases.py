@@ -70,6 +70,19 @@ def test_dft_bases(geom):
             _same(got, want)
 
 
+@pytest.mark.parametrize("frame,n_fft", [(320, 512), (400, 512), (322, 512),
+                                         (400, 1024), (640, 512), (320, 511)])
+def test_plain_dft_bases(frame, n_fft):
+    """The public, unwindowed pair (the frontend modules' bases), a frame
+    longer than n_fft and an odd n_fft included; a caller's edit of what it
+    was handed does not reach the cache."""
+    got = tbases.dft_bases(frame, n_fft)
+    for g, want in zip(got, jbases.dft_bases(frame, n_fft)):
+        _same(g, want)
+    got[0][0, 0] += 99.0
+    assert tbases.dft_bases(frame, n_fft)[0][0, 0] != got[0][0, 0]
+
+
 @pytest.mark.parametrize("geom", list(GEOMETRIES))
 def test_mel_dct_lifter(geom):
     g = GEOMETRIES[geom]

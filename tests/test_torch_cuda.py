@@ -540,3 +540,233 @@ def test_mesh_programs_on_cuda(d):
     for k in ("energy", "entropy", "mfcc"):
         assert _nmse(getattr(gb, k).cpu(), getattr(wb, k)) <= 1e-9, k
     assert torch.equal(got[1].count.cpu(), want[1].count)
+
+
+# -- the L1 ops, the facade, the frontend modules and the resampler ---------
+#
+# Each on the card against itself on the CPU. Gates: framing, pre-emphasis,
+# ZCR (a true division on both) and the fixed VAD EQUAL; float sums NMSE
+# <= 1e-9; discrete pitch picks equal on >= 99.9 % of frames; the int16
+# resampler >= 99.9 % of samples equal to the host SciPy path and none
+# further than one LSB.
+
+def _speech(seconds, seed=0, sr=16000):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    tone = (6000 * np.sin(2 * np.pi * 130 * t) + 2000 * np.sin(2 * np.pi * 260 * t)
+            + 900 * np.sin(2 * np.pi * 390 * t))
+    gate = ((t * 4).astype(int) % 2) == 1
+    return (np.where(gate, tone, 0.0) + rng.normal(0, 200, t.size)).astype(np.float32)
+
+
+def _l1_outputs(dev, frame, hop):
+    """Every L1 op on one signal, on ``dev``, as host arrays."""
+    from sspv_tpu_torch import ops
+
+    sig = torch.from_numpy(_speech(4.0, seed=frame)).to(dev)
+    frames = ops.framing(sig, frame, hop, "hamming")
+    raw = ops.frame_signal(sig, frame, hop)
+    energy = ops.calculate_short_time_energy(frames)
+    zcr = ops.calculate_zero_crossing_rate(raw)
+    out = {
+        "framing": frames, "preemphasis": ops.preemphasis(sig, 0.97),
+        "energy": energy, "zcr": zcr,
+        "acf": ops.calculate_short_time_autocorrelation(raw, 200),
+        "amdf": ops.calculate_average_magnitude_difference(raw, 200, 40),
+        "power": ops.power_spectrum(frames, 512),
+        "mfcc": ops.compute_mfcc(frames, 16000),
+        "entropy": ops.calculate_spectral_entropy(frames),
+        "vad": ops.voice_activity_detection(energy, zcr, 1e6, 0.1),
+        "vad_adaptive": ops.adaptive_voice_activity_detection(
+            energy, zcr, [2e5] * 40, [0.2] * 40),
+    }
+    for name, fn in (("direct", lambda: ops.pitch_from_frames(raw)),
+                     ("dft", lambda: ops.pitch_from_frames(raw, acf_impl="dft")),
+                     ("amdf_pitch", lambda: ops.pitch_from_frames_amdf(raw))):
+        out["f0_" + name], out["conf_" + name] = fn()
+    smooth, _ = ops.hangover_smooth_scan(out["vad"], 0, 0, 3, 2)
+    assert smooth.device == out["vad"].device
+    out["smooth"] = smooth
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,hop", [(320, 160), (400, 160), (322, 161)])
+def test_l1_ops_on_cuda_match_cpu(frame, hop):
+    got = _l1_outputs(_device("cuda"), frame, hop)
+    want = _l1_outputs(torch.device("cpu"), frame, hop)
+    for k in ("framing", "preemphasis", "zcr", "vad", "smooth"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    for k in ("energy", "acf", "amdf", "power", "mfcc", "entropy",
+              "conf_direct", "conf_dft", "conf_amdf_pitch"):
+        assert _nmse(got[k], want[k]) <= 1e-9, k
+    for k in ("f0_direct", "f0_dft", "f0_amdf_pitch", "vad_adaptive"):
+        assert np.mean(got[k] == want[k]) >= 0.999, k
+
+
+@pytest.mark.cuda
+def test_facade_on_cuda_matches_cpu():
+    """SignalProcessing.device left at its default runs on the card."""
+    from sspv_tpu_torch import SignalProcessing
+    from sspv_tpu_torch.signal_processing import on_device
+
+    _device("cuda")
+    assert SignalProcessing.device == "cuda"
+    sig = _speech(3.0, seed=1)
+
+    def run():
+        frames = SignalProcessing.framing(sig, 400, 160)
+        return {
+            "frames": frames,
+            "energy": SignalProcessing.calculate_short_time_energy(frames),
+            "zcr": SignalProcessing.calculate_zero_crossing_rate(frames),
+            "mfcc": SignalProcessing.compute_mfcc(frames, 16000, lifter=22),
+            "entropy": SignalProcessing.calculate_spectral_entropy(frames),
+            "acf": SignalProcessing.calculate_short_time_autocorrelation(
+                frames, 50),
+        }
+
+    got = run()
+    with on_device("cpu"):
+        want = run()
+    assert all(isinstance(v, np.ndarray) for v in got.values())
+    np.testing.assert_array_equal(got["frames"], want["frames"])
+    np.testing.assert_array_equal(got["zcr"], want["zcr"])
+    for k in ("energy", "mfcc", "entropy", "acf"):
+        assert _nmse(got[k], want[k]) <= 1e-9, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame,hop", [(320, 160), (400, 160)])
+def test_frontend_modules_on_cuda_match_cpu(frame, hop):
+    from sspv_tpu_torch import models
+
+    dev = _device("cuda")
+    sig = _speech(3.0, seed=2)
+    kw = dict(frame_size=frame, hop_size=hop)
+    got = models.SpeechFrontend(**kw).from_signal(sig)   # default: the card
+    want = models.SpeechFrontend(device="cpu", **kw).from_signal(sig)
+    assert got["mfcc"].device.type == dev.type
+    assert torch.equal(got["zcr"].cpu(), want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k].cpu(), want[k]) <= 1e-9, k
+    for method in ("acf", "amdf"):
+        f0, conf = models.Pitch(method=method, **kw).from_signal(sig)
+        cf0, cconf = models.Pitch(method=method, device="cpu", **kw).from_signal(sig)
+        assert (f0.cpu() == cf0).float().mean().item() >= 0.999
+        assert _nmse(conf.cpu(), cconf) <= 1e-9
+    vad = models.VADModel(energy_threshold=1e6, zcr_threshold=0.1, **kw)
+    cvad = models.VADModel(energy_threshold=1e6, zcr_threshold=0.1,
+                           device="cpu", **kw)
+    assert (vad.from_signal(sig).cpu() == cvad.from_signal(sig)).float().mean() \
+        >= 0.999
+
+
+def _int16_gate(got, want):
+    assert got.dtype == np.int16 and got.shape == want.shape
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3, (
+        diff.max(), (diff > 0).mean())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src", [8000, 22050, 44100, 48000])
+def test_resampler_on_cuda_matches_host(src):
+    from sspv_tpu_torch.ops import resample
+    from sspv_tpu_torch.runtime.audio_source import _resample_to
+
+    _device("cuda")
+    pcm = _speech(20.0, seed=src, sr=src).astype(np.int16)
+    before = resample.CALLS["resample"]
+    got = resample.resample_to_rate_device(pcm, src, 16000)
+    assert resample.CALLS["resample"] == before + 1
+    _int16_gate(got, _resample_to(pcm, src, 16000))
+    back = resample.resample_to_rate_device(got, 16000, src)
+    _int16_gate(back, _resample_to(got, 16000, src))
+
+
+@pytest.mark.cuda
+def test_tf32_switched_on_changes_nothing():
+    """With the process-wide matmul precision at "medium" and cuDNN's TF32
+    switch on, the L1 ops, the frontend modules and the resampler still
+    meet their float32 gates, and the settings are as the caller left them
+    afterwards ("medium", not merely some TF32 setting)."""
+    from sspv_tpu_torch import models, ops
+    from sspv_tpu_torch.ops import resample
+    from sspv_tpu_torch.runtime.audio_source import _resample_to
+
+    dev = _device("cuda")
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("medium")
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sig = _speech(3.0, seed=3)
+        frames = ops.framing(torch.from_numpy(sig).to(dev), 400, 160)
+        want = ops.compute_mfcc(frames.cpu(), 16000)
+        assert _nmse(ops.compute_mfcc(frames, 16000).cpu(), want) <= 1e-9
+        raw = ops.frame_signal(torch.from_numpy(sig).to(dev), 320, 160)
+        _, conf = ops.pitch_from_frames(raw, acf_impl="dft")
+        _, cconf = ops.pitch_from_frames(raw.cpu(), acf_impl="dft")
+        assert _nmse(conf.cpu(), cconf) <= 1e-9
+        fe = models.SpeechFrontend(frame_size=400, hop_size=160)
+        cfe = models.SpeechFrontend(frame_size=400, hop_size=160, device="cpu")
+        got, ref = fe.from_signal(sig), cfe.from_signal(sig)
+        for k in ("energy", "entropy", "mfcc"):
+            assert _nmse(got[k].cpu(), ref[k]) <= 1e-9, k
+        pcm = _speech(10.0, seed=4, sr=44100).astype(np.int16)
+        host = _resample_to(pcm, 44100, 16000)
+        _int16_gate(resample.resample_to_rate_device(pcm, 44100, 16000), host)
+        assert torch.get_float32_matmul_precision() == "medium"
+        assert torch.backends.cudnn.allow_tf32
+        # and set through the boolean switch, flipped between calls
+        torch.set_float32_matmul_precision("highest")
+        for flag in (True, False, True):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            _, conf = ops.pitch_from_frames(raw, acf_impl="dft")
+            assert _nmse(conf.cpu(), cconf) <= 1e-9
+            assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
+
+
+@pytest.mark.cuda
+def test_device_resample_routes_to_the_card_without_a_fallback(monkeypatch):
+    from sspv_tpu_torch import Config
+    from sspv_tpu_torch.ops import resample
+    from sspv_tpu_torch.runtime import audio_source
+
+    _device("cuda")
+    pcm = _speech(5.0, seed=5, sr=48000).astype(np.int16)
+    host = audio_source._resample_to(pcm, 48000, 16000)
+    monkeypatch.setattr(Config, "TPU_DEVICE_RESAMPLE", True)
+    before = resample.CALLS["resample"]
+    _int16_gate(audio_source._resample_to(pcm, 48000, 16000), host)
+    assert resample.CALLS["resample"] == before + 1
+    audio_source._resample_to(pcm[:4000], 48000, 16000)  # short: the host
+    assert resample.CALLS["resample"] == before + 1
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("no device today")
+
+    monkeypatch.setattr(resample, "_correlate", broken)
+    with pytest.raises(RuntimeError, match="no device today"):
+        audio_source._resample_to(pcm, 48000, 16000)
+
+
+@pytest.mark.cuda
+def test_entry_points_and_trace_on_the_card(tmp_path, capsys):
+    from sspv_tpu_torch import demo, test_system
+    from sspv_tpu_torch.utils import device_trace
+
+    dev = _device("cuda")
+    assert test_system.main([]) == 0
+    assert demo.main([]) == 0
+    out = capsys.readouterr().out
+    assert "ALL PASS" in out and "demo complete" in out and "on cuda" in out
+    with device_trace(str(tmp_path)) as prof:
+        x = torch.ones((512, 512), device=dev)
+        (x @ x).sum().item()
+    assert (tmp_path / "trace.json").stat().st_size > 0
+    assert len(prof.key_averages()) > 0

@@ -173,7 +173,8 @@ def test_engine_pitch_matches_offline_track(both_configs, samples_dispatch,
     pipe = FeaturePipeline(device="cpu")
     frames = torch.from_numpy(pipe.stream_frames(sig)[:n])
     want_f0, want_conf = pitch_track(frames, vads,
-                                     min_confidence=TConfig.TPU_ENGINE_PITCH_MIN_CONF)
+                                     min_confidence=TConfig.TPU_ENGINE_PITCH_MIN_CONF,
+                                     acf_impl="dft")
     np.testing.assert_array_equal(f0, want_f0.numpy())
     np.testing.assert_allclose(conf, want_conf.numpy(), rtol=1e-5, atol=1e-6)
     v = f0[f0 > 0]
@@ -354,16 +355,39 @@ def test_file_sources_equal_jax(tmp_path, file_sr, target):
 
 
 def test_device_resample_is_not_ported(monkeypatch):
-    """With TPU_DEVICE_RESAMPLE set, a whole-file resample raises instead of
-    quietly running on the host; a short one (under the minimum seconds)
-    takes the host path, as in the JAX package."""
+    """(The name dates from when the device path raised NotImplementedError.)
+    With TPU_DEVICE_RESAMPLE set, a whole-file resample goes to the device
+    resampler and nowhere else: its default device is the card, so without
+    one the call raises instead of quietly running on the host, and with
+    the device call steered to the CPU it gives the host path's samples to
+    one LSB. A short array (under the minimum seconds) takes the host path,
+    as in the JAX package."""
+    import functools
+
+    from sspv_tpu_torch.ops import resample as tres
+
     arr = speech(2.0)
     monkeypatch.setattr(TConfig, "TPU_DEVICE_RESAMPLE", True)
-    with pytest.raises(NotImplementedError):
-        tsrc._resample_to(arr, 16000, 8000)
+    before = tres.CALLS["resample"]
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tsrc._resample_to(arr, 16000, 8000)
+        assert tres.CALLS["resample"] == before
+    monkeypatch.setattr(
+        tres, "resample_to_rate_device",
+        functools.partial(tres.resample_to_rate_device, device="cpu"))
+    got = tsrc._resample_to(arr, 16000, 8000)
+    assert tres.CALLS["resample"] == before + 1
+    monkeypatch.setattr(TConfig, "TPU_DEVICE_RESAMPLE", False)
+    want = tsrc._resample_to(arr, 16000, 8000)
+    assert tres.CALLS["resample"] == before + 1
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert got.dtype == np.int16 and diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    monkeypatch.setattr(TConfig, "TPU_DEVICE_RESAMPLE", True)
     short = arr[:4000]
     np.testing.assert_array_equal(tsrc._resample_to(short, 16000, 8000),
                                   jsrc._resample_to(short, 16000, 8000))
+    assert tres.CALLS["resample"] == before + 1
 
 
 @pytest.mark.parametrize("frame,hop,n", [(320, 160, 5000), (400, 160, 5000),

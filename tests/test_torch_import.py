@@ -28,6 +28,11 @@ def test_import_leaves_jax_sspv_tpu_triton_and_cuda_alone():
         "import sspv_tpu_torch, sspv_tpu_torch.ops, sspv_tpu_torch.parallel\n"
         "import sspv_tpu_torch.batch, sspv_tpu_torch.analyze\n"
         "import sspv_tpu_torch.utils.export\n"
+        "import sspv_tpu_torch.signal_processing, sspv_tpu_torch.models\n"
+        "import sspv_tpu_torch.ops.resample, sspv_tpu_torch.utils.npz_io\n"
+        "import sspv_tpu_torch.utils.profiling\n"
+        "import sspv_tpu_torch.demo, sspv_tpu_torch.test_system\n"
+        "from sspv_tpu_torch import SignalProcessing\n"
         "import torch\n"
         "from sspv_tpu_torch.ops import _build\n"
         f"bad = [m for m in {FORBIDDEN!r} if m in sys.modules]\n"
@@ -60,3 +65,11 @@ def test_port_sources_import_no_jax(path):
             names.append(node.module or "")
     bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+def test_npz_io_is_a_copy_of_the_original():
+    """``utils/npz_io.py`` is NumPy only: source-equal to the JAX package's
+    file but for the package name."""
+    ours = (REPO / "sspv_tpu_torch" / "utils" / "npz_io.py").read_text()
+    theirs = (REPO / "sspv_tpu" / "utils" / "npz_io.py").read_text()
+    assert ours.replace("sspv_tpu_torch", "sspv_tpu") == theirs
