@@ -88,7 +88,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
    its K3 launch and per-row VAD loop apart; and the engine's
    audio-seconds per second on the host clock;
-11. bounds each kernel by the least work of its function: the operations
+11. serves HTTP (``serve_runs``): ``serve.make_server`` over
+    ``FeatureService(device)`` on a thread, warmed up; ``/healthz`` must
+    answer 200 with backend ``cuda``; ``/v1/features``, ``/v1/vad`` and
+    ``/v1/pitch`` on eight 60 s WAVs cut from the hour, ``/v1/features``
+    on 600 s sent as a 44.1 kHz stereo WAV (downmix and resample, with
+    ``TPU_DEVICE_RESAMPLE`` off and on) and on 2,048 s (the cap) as npz,
+    2,049 s (must give 413), ``/v1/stream?pitch=1&mfcc=1`` over 600 s sent
+    in 100 ms chunks, and 1, 4 and 8 concurrent clients of four 60 s
+    requests each, features and pitch mixed. Every 200 response must equal
+    the same samples through the pipeline called directly bit for bit
+    (``process_signal_auto``, ``process_signal_pitch_auto``,
+    ``stream_pitch`` over the chunks the server dispatches), with the same
+    launches (K1 for features and VAD, K1 and K2 for pitch, K3 per stream
+    dispatch, nothing else); the concurrent responses must equal the
+    serial ones byte for byte and their launches add up; each kernel is
+    held to its plain version on the first 60 s request's inputs. It
+    prints the warm-up seconds, p50/p95 latency per endpoint and size, and
+    audio-s/s at 1, 4 and 8 clients and of the stream (host clock);
+12. runs ``sspv_tpu_torch.main.main(["--device", "cuda"])`` in this process
+    (``main_runs``) on a 600 s WAV of the engine phase's audio, headless,
+    the snapshot in a temporary directory: the run must end at the end of
+    the file with one K1 launch per engine dispatch, the frames of the
+    engine phase's samples-mode run, and a ``save_data`` file that
+    ``utils.npz_io.validate_session`` accepts;
+13. bounds each kernel by the least work of its function: the operations
     of the features or ACF computed with real FFTs and a sparse mel
     filterbank, or the bytes it must move, whichever takes longer; it also
     prints the bound of the kernels' own design: the same FFT operations
@@ -104,6 +128,7 @@ every kernel's launches, error, times and bound, and the
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
 import os
@@ -820,12 +845,19 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
     return {"launches": launches, "ms": ms}
 
 
-def write_wav(path: Path, pcm: np.ndarray, rate: int = SR) -> str:
-    with wave.open(str(path), "wb") as w:
-        w.setnchannels(1)
+def wav_bytes(pcm: np.ndarray, rate: int = SR, channels: int = 1) -> bytes:
+    """A 16-bit PCM WAV file of ``pcm`` (``(n, channels)`` when stereo)."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(channels)
         w.setsampwidth(2)
         w.setframerate(rate)
         w.writeframes(pcm.astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def write_wav(path: Path, pcm: np.ndarray, rate: int = SR) -> str:
+    Path(path).write_bytes(wav_bytes(pcm, rate))
     return str(path)
 
 
@@ -1342,6 +1374,469 @@ def l1_runs(device, sig: np.ndarray, pipe400, frames_run, card: str) -> dict:
     return ms
 
 
+SERVE_SECONDS = 60  # the size of a request users send
+SERVE_LONG_SECONDS = 600  # the 44.1 kHz stereo file, the stream and main
+SERVE_LONG_RATE = 44100
+SERVE_CLIENTS = (1, 4, 8)
+SERVE_REQUESTS = 4  # per client in each concurrency run
+SERVE_REPS = 3  # of each long request, for its latency
+STREAM_PIECE_SECONDS = 0.1  # the stream's client chunks
+
+
+def http_request(port: int, method: str, path: str, body: bytes = b"",
+                 headers: dict | None = None) -> tuple:
+    """One request to the local server: ``(status, content type, body,
+    host seconds)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        data = resp.read()
+        return (resp.status, resp.getheader("Content-Type"), data,
+                time.perf_counter() - t0)
+    finally:
+        conn.close()
+
+
+def stream_request(port: int, path: str, pcm: np.ndarray, piece: int) -> tuple:
+    """``pcm`` sent chunked in ``piece``-sample chunks while the NDJSON rows
+    are read back: ``(status, rows, host seconds)``. The request goes out
+    on a socket of its own: ``http.client.HTTPConnection`` drops its socket
+    as soon as a ``Connection: close`` response begins, and would send the
+    rest of the audio on a new connection."""
+    import http.client
+    import socket
+    import threading
+
+    data = pcm.astype("<i2").tobytes()
+    failed = []
+    sock = socket.create_connection(("127.0.0.1", port), timeout=600)
+
+    def send_all():
+        try:
+            for lo in range(0, len(data), 2 * piece):
+                part = data[lo : lo + 2 * piece]
+                sock.sendall(b"%x\r\n" % len(part) + part + b"\r\n")
+            sock.sendall(b"0\r\n\r\n")
+        except OSError as e:
+            failed.append(e)
+
+    sender = threading.Thread(target=send_all, daemon=True)
+    try:
+        t0 = time.perf_counter()
+        sock.sendall(f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                     "Content-Type: application/octet-stream\r\n"
+                     "Transfer-Encoding: chunked\r\n\r\n".encode())
+        sender.start()
+        resp = http.client.HTTPResponse(sock, method="POST")
+        resp.begin()  # rows come back while audio is still being sent
+        rows = [json.loads(x) for x in resp.read().splitlines() if x.strip()]
+        seconds = time.perf_counter() - t0
+        sender.join(timeout=600)
+        resp.close()
+    finally:
+        sock.close()
+    require(not sender.is_alive() and not failed, f"stream upload: {failed}")
+    return resp.status, rows, seconds
+
+
+def coalesced(pcm: np.ndarray, piece: int, min_bytes: int) -> list:
+    """The chunks the server dispatches for ``pcm`` sent in ``piece``-sample
+    chunks: ``_Handler._do_stream`` joins them until ``min_bytes``."""
+    out, buf = [], bytearray()
+    for lo in range(0, len(pcm), piece):
+        buf += pcm[lo : lo + piece].astype("<i2").tobytes()
+        if len(buf) >= min_bytes:
+            out.append(np.frombuffer(bytes(buf), "<i2"))
+            buf.clear()
+    if buf:
+        out.append(np.frombuffer(bytes(buf), "<i2"))
+    return out
+
+
+BLOCK_FIELDS = ("energy", "zcr", "entropy", "mfcc", "vad", "vad_adaptive")
+
+
+def block_fields(block) -> dict:
+    return {k: host(getattr(block, k)) for k in BLOCK_FIELDS}
+
+
+def equal_fields(got: dict, want: dict) -> list:
+    """Keys of ``want`` whose value ``got`` does not hold bit for bit (JSON
+    floats carry float32 values exactly)."""
+    return [k for k, v in want.items()
+            if not np.array_equal(np.asarray(got[k]), np.asarray(v))]
+
+
+def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
+    """``serve.make_server`` over ``FeatureService(device)`` on a thread,
+    warmed up, driven through HTTP at the sizes users send; every 200
+    response held bit for bit to the pipeline called directly on the same
+    samples, and each request's launches to the direct call's."""
+    import threading
+
+    import torch
+
+    from sspv_tpu_torch.config import Config, parse_buckets
+    from sspv_tpu_torch.ops import LAUNCHES, resample
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.ops import pitch as pitch_mod
+    from sspv_tpu_torch.runtime.audio_source import _resample_to
+    from sspv_tpu_torch.serve import FeatureService, decode_audio, make_server
+    from sspv_tpu_torch.utils.synth import synth_signal
+
+    out = {"latency": {}}
+    pcm = np.clip(sig, -32768, 32767).astype(np.int16)
+    svc = FeatureService(device=device)
+    pipe = svc.pipe
+    server = make_server("127.0.0.1", 0, svc)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    saved_resample = Config.TPU_DEVICE_RESAMPLE
+    try:
+        t0 = time.perf_counter()
+        svc.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+
+        status, ctype, body, _ = http_request(port, "GET", "/healthz")
+        health = json.loads(body)
+        print(f"serve /healthz: {status} {json.dumps(health)}")
+        require(status == 200 and health == {
+            "status": "ok", "backend": "cuda",
+            "device_count": torch.cuda.device_count()}, "/healthz on the card")
+
+        def post(path, body, headers=None):
+            sync(device)
+            reset_launches()
+            status, rtype, data, seconds = http_request(
+                port, "POST", path, body, headers or {"Content-Type": "audio/wav"})
+            return status, rtype, data, seconds, dict(LAUNCHES)
+
+        def direct(samples, pitch):
+            sync(device)
+            reset_launches()
+            if pitch:
+                block, _, f0, conf = pipe.process_signal_pitch_auto(samples)
+                want = dict(block_fields(block), f0=f0, pitch_confidence=conf)
+            else:
+                want = block_fields(pipe.process_signal_auto(samples)[0])
+            sync(device)
+            return want, dict(LAUNCHES)
+
+        def check(label, path, status, rtype, data, launches, samples,
+                  pitch, want_launches):
+            require(status == 200, f"{label}: status {status}")
+            res = (json.loads(data) if rtype == "application/json"
+                   else dict(np.load(io.BytesIO(data))))
+            want, direct_launches = direct(samples, pitch)
+            vad = ("vad", "vad_adaptive")
+            keys = {"/v1/vad": vad, "/v1/pitch": vad + (
+                "f0", "pitch_confidence")}.get(path, BLOCK_FIELDS)
+            bad = equal_fields(res, {k: want[k] for k in keys})
+            require(int(res["num_frames"]) == len(want["vad"]) and not bad,
+                    f"{label}: response equals the direct call (not {bad})")
+            require(launches == direct_launches == want_launches,
+                    f"{label}: launches {launches}, direct {direct_launches}")
+
+        # -- 60 s requests, one slice of the hour per client ----------------
+        n60 = SERVE_SECONDS * SR
+        slices = [pcm[i * n60 : (i + 1) * n60] for i in range(max(SERVE_CLIENTS))]
+        wavs = [wav_bytes(s) for s in slices]
+        k1 = {"view_features": 1, "view_pitch": 0, "frame_features": 0}
+        k12 = dict(k1, view_pitch=1)
+        routes = {"/v1/features": (False, k1), "/v1/vad": (False, k1),
+                  "/v1/pitch": (True, k12)}
+        serial = {}
+        for path, (pitch, want_launches) in routes.items():
+            label = f"{path} {SERVE_SECONDS} s"
+            out["latency"][label] = []
+            for i, (samples, wav) in enumerate(zip(slices, wavs)):
+                with recording([(pipeline_mod, "fused_view_features")]) \
+                        as feat_calls, recording(
+                            [(pitch_mod, "fused_view_pitch")]) as pitch_calls:
+                    status, rtype, data, seconds, launches = post(path, wav)
+                out["latency"][label].append(seconds)
+                check(label, path, status, rtype, data, launches, samples,
+                      pitch, want_launches)
+                serial[path, i] = data
+                if i == 0 and path != "/v1/vad":  # the kernels on its inputs
+                    calls_parity("view_features", feat_calls, err,
+                                 f"serve {label}")
+                    if pitch:
+                        calls_parity("view_pitch", pitch_calls, err,
+                                     f"serve {label}")
+        print(f"serve {SERVE_SECONDS} s: {len(slices)} requests per route, "
+              "each equal to the direct call bit for bit, with its launches")
+        out["breakdown"] = request_breakdown(svc, slices[0], wavs[0], card)
+
+        # -- 600 s at 44.1 kHz stereo: decode, downmix, resample ------------
+        mono = synth_signal(SERVE_LONG_SECONDS, SERVE_LONG_RATE).astype(np.int16)
+        stereo = np.stack([mono, np.roll(mono, SERVE_LONG_RATE // 10)], axis=1)
+        body = wav_bytes(stereo, SERVE_LONG_RATE, channels=2)
+        samples, rate = decode_audio(body, "audio/wav")
+        for on in (False, True):
+            Config.TPU_DEVICE_RESAMPLE = on
+            sig16 = _resample_to(samples, rate, SR, device=device)
+            label = (f"/v1/features?fmt=npz {SERVE_LONG_SECONDS} s 44.1 kHz "
+                     f"stereo, resample on the {'card' if on else 'host'}")
+            out["latency"][label] = []
+            for _ in range(SERVE_REPS):
+                calls = resample.CALLS["resample"]
+                status, rtype, data, seconds, launches = post(
+                    "/v1/features?fmt=npz", body)
+                require(resample.CALLS["resample"] == calls + int(on),
+                        f"{label}: the resampler ran where asked")
+                out["latency"][label].append(seconds)
+                check(label, "/v1/features", status, rtype, data, launches,
+                      sig16, False, k1)
+        Config.TPU_DEVICE_RESAMPLE = saved_resample
+        print(f"serve {SERVE_LONG_SECONDS} s 44.1 kHz stereo: equal to the "
+              "direct call with the host and with the device resampler")
+
+        # -- the duration cap: 2,048 s as npz, one second more is 413 -------
+        cap = pipe.SIGNAL_BUCKET_SECONDS[-1]
+        at_cap = pcm[: cap * SR]
+        require(len(at_cap) == cap * SR, "the signal covers the cap")
+        body = wav_bytes(at_cap)
+        label = f"/v1/features?fmt=npz {cap} s"
+        out["latency"][label] = []
+        for _ in range(SERVE_REPS):
+            status, rtype, data, seconds, launches = post(
+                "/v1/features?fmt=npz", body)
+            out["latency"][label].append(seconds)
+            check(label, "/v1/features", status, rtype, data, launches,
+                  at_cap, False, k1)
+        over = np.zeros(((cap + 1) * SR,), np.int16).tobytes()
+        status, _, data, _, launches = post("/v1/features", over, {
+            "Content-Type": "application/octet-stream", "X-Sample-Rate": str(SR)})
+        print(f"serve {cap + 1} s: {status} {data.decode()[:120]}")
+        require(status == 413 and b"sspv_tpu_torch.batch" in data
+                and not any(launches.values()), f"{cap + 1} s gives 413")
+
+        # -- the stream: 600 s sent in 100 ms chunks, pitch and MFCC --------
+        head = pcm[: SERVE_LONG_SECONDS * SR]
+        piece = int(STREAM_PIECE_SECONDS * SR)
+        c = pipe.cfg
+        first = parse_buckets(Config.TPU_STREAM_BUCKETS)[0]
+        chunks = coalesced(head, piece, 2 * ((first - 1) * c.hop_size
+                                             + c.frame_size))
+        sync(device)
+        reset_launches()
+        status, rows, stream_s = stream_request(
+            port, "/v1/stream?pitch=1&mfcc=1", head, piece)
+        launches = dict(LAUNCHES)
+        reset_launches()
+        t0 = time.perf_counter()
+        want = list(pipe.stream_pitch(iter(chunks), min_confidence=0.3))
+        sync(device)
+        out["stream_direct_s"] = time.perf_counter() - t0
+        direct_launches = dict(LAUNCHES)
+        require(status == 200 and rows[-1] == {"done": True,
+                                              "blocks": len(want)},
+                f"stream: status {status}, last row {rows[-1]}")
+        bad = [i for i, (row, (block, f0, conf)) in enumerate(zip(rows, want))
+               if equal_fields(row, dict(block_fields(block), f0=f0,
+                                         pitch_confidence=conf))]
+        frames = sum(r["frames"] for r in rows[:-1])
+        print(f"serve stream {SERVE_LONG_SECONDS} s in {len(head) // piece} "
+              f"chunks of {piece}: {len(want)} blocks, {frames} frames, "
+              f"launches {json.dumps(launches)} (direct "
+              f"{json.dumps(direct_launches)}), rows unequal: {bad[:5]}")
+        require(not bad and frames == 1 + (len(head) - c.frame_size)
+                // c.hop_size, "stream rows equal stream_pitch bit for bit")
+        require(launches == direct_launches and launches == {
+            "view_features": 0, "view_pitch": 0,
+            "frame_features": len(want)}, "stream: one K3 launch per dispatch")
+        out["stream_audio_s_per_s"] = SERVE_LONG_SECONDS / stream_s
+
+        # -- concurrent clients, /v1/features and /v1/pitch mixed -----------
+        out["audio_s_per_s"] = {}
+        for clients in SERVE_CLIENTS:
+            got, lat = {}, []
+            paths = {(i, j): "/v1/features" if (i + j) % 2 == 0 else "/v1/pitch"
+                     for i in range(clients) for j in range(SERVE_REQUESTS)}
+
+            def client(i):
+                for j in range(SERVE_REQUESTS):
+                    got[i, j] = http_request(port, "POST", paths[i, j], wavs[i],
+                                             {"Content-Type": "audio/wav"})
+
+            workers = [threading.Thread(target=client, args=(i,))
+                       for i in range(clients)]
+            sync(device)
+            reset_launches()
+            t0 = time.perf_counter()
+            for w in workers:
+                w.start()
+            for w in workers:
+                w.join(timeout=600)
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            require(not any(w.is_alive() for w in workers) and len(got) == len(
+                paths), f"{clients} clients: every request answered")
+            same = all(got[key][0] == 200 and got[key][2] == serial[
+                paths[key], key[0]] for key in paths)
+            n_pitch = sum(p == "/v1/pitch" for p in paths.values())
+            lat = [r[3] for r in got.values()]
+            out["latency"][f"mixed {SERVE_SECONDS} s, {clients} clients"] = lat
+            out["audio_s_per_s"][clients] = len(paths) * SERVE_SECONDS / wall
+            print(f"serve {clients} client(s) x {SERVE_REQUESTS} requests of "
+                  f"{SERVE_SECONDS} s: responses equal the serial ones {same},"
+                  f" launches {json.dumps(launches)}")
+            require(same, f"{clients} clients: responses equal the serial ones")
+            require(launches == {"view_features": len(paths),
+                                 "view_pitch": n_pitch, "frame_features": 0},
+                    f"{clients} clients: the launch counts add up")
+    finally:
+        Config.TPU_DEVICE_RESAMPLE = saved_resample
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    print(f"serve warm-up (first requests; the kernels were built at the "
+          f"start) {out['warmup_s']:.3f} s on {card}")
+    print(f"serve latency p50 / p95 s and requests (host clock, client in "
+          f"the same process) on {card}: " + json.dumps({
+              k: [float(np.percentile(v, 50)), float(np.percentile(v, 95)),
+                  len(v)] for k, v in out["latency"].items()}))
+    print(f"serve audio-s/s by clients (host clock, {SERVE_SECONDS} s "
+          f"requests, features and pitch mixed) on {card}: "
+          + json.dumps(out["audio_s_per_s"]))
+    print(f"serve stream {out['stream_audio_s_per_s']:.1f} audio-s/s (host "
+          f"clock, {SERVE_LONG_SECONDS} s, pitch and MFCC; stream_pitch "
+          f"called directly on the same chunks: {out['stream_direct_s']:.3f} s)"
+          f" on {card}")
+    return out
+
+
+def request_breakdown(svc, samples: np.ndarray, wav: bytes, card: str) -> dict:
+    """Where one ``/v1/features`` request's time goes: its host stages
+    (host clock, medians of 5 warm calls) and the card's busy time inside
+    ``analyze`` (``torch.profiler``, the sum of the device events)."""
+    import torch
+
+    from sspv_tpu_torch.serve import (_FEATURE_KEYS, _jsonify, _select,
+                                      decode_audio)
+
+    device, pipe = svc.pipe.device, svc.pipe
+
+    def med(fn, reps=5):
+        seconds = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            seconds.append(time.perf_counter() - t0)
+        return float(np.median(seconds))
+
+    selected = _select(svc.analyze(samples, SR), _FEATURE_KEYS)
+    ms = {k: 1e3 * v for k, v in {
+        "decode": med(lambda: decode_audio(wav, "audio/wav")),
+        "analyze": med(lambda: svc.analyze(samples, SR)),
+        "analyze_exact_length": med(lambda: block_fields(
+            pipe.process_signal_device(samples)[0])),
+        "json": med(lambda: json.dumps(
+            {k: _jsonify(v) for k, v in selected.items()})),
+        "npz": med(lambda: np.savez_compressed(io.BytesIO(), **selected)),
+    }.items()}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        svc.analyze(samples, SR)
+        sync(device)
+    busy_us = sum(getattr(e, "self_device_time_total", 0) or 0
+                  for e in prof.key_averages())
+    ms["analyze_device_busy"] = busy_us / 1e3 if busy_us else None
+    print(f"serve {len(samples) / SR:.0f} s /v1/features, where a request's "
+          f"time goes, ms (host clock, medians of 5; analyze: bucket padding, "
+          f"upload, the device call and one read-back per field; "
+          f"analyze_exact_length without the padding; analyze_device_busy: "
+          f"the card's own time in one analyze, torch.profiler, None if it "
+          f"saw none) on {card}: " + json.dumps(ms))
+    return ms
+
+
+def main_runs(device, sig: np.ndarray, engine: dict, card: str) -> dict:
+    """``sspv_tpu_torch.main.main`` in this process over a WAV of the
+    engine phase's audio, headless, to the end of the file: one K1 launch
+    per engine dispatch, the frames the engine phase's samples-mode run
+    gave, and a ``save_data`` file that ``validate_session`` accepts."""
+    import sspv_tpu_torch.ui as ui_pkg
+    from sspv_tpu_torch import main as main_mod
+    from sspv_tpu_torch.config import Config
+    from sspv_tpu_torch.ops import LAUNCHES
+    from sspv_tpu_torch.utils.npz_io import load_session, validate_session
+
+    sig16 = np.clip(sig[: ENGINE_SECONDS * SR], -32768, 32767).astype(np.int16)
+    n = 1 + (len(sig16) - 320) // 160
+    seen = {}
+
+    class Recorded(ui_pkg.VisualizationUI):
+        def __init__(self, runtime, **kwargs):
+            seen["runtime"], seen["kwargs"] = runtime, kwargs
+            super().__init__(runtime, **kwargs)
+
+    knobs = ("PROCESSED_DATA_BUFFER_SIZE", "TPU_STREAM_SAMPLES_DISPATCH",
+             "TPU_ENGINE_PITCH")
+    saved = {k: getattr(Config, k) for k in knobs}
+    env_keys = ("RTP_INPUT_FILE", "RTP_HEADLESS", "RTP_SNAPSHOT")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ.update(RTP_INPUT_FILE=write_wav(Path(tmp) / "main.wav", sig16),
+                          RTP_HEADLESS="1",
+                          RTP_SNAPSHOT=str(Path(tmp) / "snapshot.png"))
+        Config.PROCESSED_DATA_BUFFER_SIZE = n
+        Config.TPU_STREAM_SAMPLES_DISPATCH = 1
+        Config.TPU_ENGINE_PITCH = False
+        original, ui_pkg.VisualizationUI = ui_pkg.VisualizationUI, Recorded
+        try:
+            sync(device)
+            reset_launches()
+            t0 = time.perf_counter()
+            main_mod.main(["--device", device.type])
+            seconds = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            rt = seen["runtime"]
+            session = load_session(rt.save_data(tmp))
+        finally:
+            ui_pkg.VisualizationUI = original
+            for k, v in saved.items():
+                setattr(Config, k, v)
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    problems = validate_session(session)
+    print(f"python -m sspv_tpu_torch.main --device {device.type} (headless, "
+          f"{ENGINE_SECONDS} s WAV): {rt.frames_processed} frames in "
+          f"{rt.dispatch_count} dispatches, {seconds:.3f} s, launches "
+          f"{json.dumps(launches)}, snapshot {seen['kwargs']}, "
+          f"validate_session {problems}")
+    # with no RTP_DURATION the headless loop ends only when the engine
+    # stops itself at the end of its source (or fails)
+    require(rt.last_error is None and not rt.is_running
+            and rt.frames_processed == n,
+            "main: the engine ran to the end of the file")
+    require(launches["view_features"] == rt.dispatch_count > 0
+            and launches["view_pitch"] == launches["frame_features"] == 0,
+            "main: one K1 launch per engine dispatch")
+    require(problems == [] and session.num_frames == n, "main: save_data")
+    ref = list(engine["view_features"]["rt"].processed_data)
+    same = all(np.array_equal(getattr(session, k), np.array(
+        [d[key] for d in ref], getattr(session, k).dtype)) for k, key in
+        (("energies", "energy"), ("zcrs", "zcr"), ("vads", "vad"),
+         ("spec_entropy", "spec_entropy"), ("vads_adaptive", "vad_adaptive")))
+    print(f"main: frames equal the engine phase's samples-mode run {same}; "
+          f"{ENGINE_SECONDS / seconds:.1f} audio-s/s (host clock, UI poll "
+          f"loop included) on {card}")
+    require(same, "main: frames equal the engine phase's")
+    return {"seconds": seconds, "launches": launches}
+
+
 def time_ms(fn, reps: int = 5) -> list[float]:
     """Device milliseconds of ``reps`` warm calls of ``fn``, each between
     its own pair of CUDA events (the gap a host-bound call leaves on the
@@ -1586,6 +2081,8 @@ def main() -> int:
     ms = timings(pipe, main["rows"], pipe400, frames_run, card)
     long_ms = long_timings(long_run, main["rows"], card)
     batch_timings(device, main["signal"], card)
+    serve_runs(device, main["signal"], err, card)
+    main_runs(device, main["signal"], engine, card)
     for kernel, run in engine.items():
         mode = "samples" if kernel == "view_features" else "frames"
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "

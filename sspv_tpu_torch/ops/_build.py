@@ -24,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "LAUNCHES", "NVCC_FLAGS", "ROUTES", "build", "check",
-           "library"]
+           "count", "library"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -43,6 +43,9 @@ LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0}
 # Launches of K3 by route ("fft": the shared-memory FFT kernel, "dense": the
 # DFT-pair kernel); they add up to LAUNCHES["frame_features"].
 ROUTES = {"frame_features_fft": 0, "frame_features_dense": 0}
+# Guards both dicts: threads of one server launch the kernels concurrently,
+# and a bare ``+= 1`` is a read-modify-write that can lose a count.
+_count_lock = threading.Lock()
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -124,6 +127,15 @@ def library() -> ctypes.CDLL:
             path, _ = build()
             _lib = _declare(ctypes.CDLL(str(path)))
         return _lib
+
+
+def count(kernel: str, route: str | None = None) -> None:
+    """Add one launch of ``kernel`` (and of its ``route``, a key of
+    ``ROUTES``) to the counts, under a lock."""
+    with _count_lock:
+        LAUNCHES[kernel] += 1
+        if route is not None:
+            ROUTES[route] += 1
 
 
 def check(err: int, what: str) -> None:

@@ -156,8 +156,7 @@ def _launch(frames, *, window, wc, ws, fb_t, dct, lifter, n_fft, mel_ranges,
                 mfcc.data_ptr(), _stream(dev),
             )
         _build.check(err, f"frame_features ({route} route)")
-        LAUNCHES["frame_features"] += 1
-        ROUTES["frame_features_" + route] += 1
+        _build.count("frame_features", "frame_features_" + route)
     return {"energy": energy, "zcr": zcr, "entropy": entropy, "mfcc": mfcc}
 
 

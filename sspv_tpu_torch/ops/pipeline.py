@@ -30,6 +30,7 @@ every view geometry.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -222,6 +223,7 @@ class FeaturePipeline:
         self._host_consts = dict.fromkeys(("window", "wc", "ws", "wm", "wnyq",
                                            "fb_t"))
         self._acf: dict[int, tuple] = {}
+        self._acf_lock = threading.Lock()
         self.load_constants(consts)
 
     # -- constants ----------------------------------------------------------
@@ -293,10 +295,11 @@ class FeaturePipeline:
         return _lag_band(c.sample_rate, fmin, fmax, c.frame_size)[1]
 
     def _acf_bases(self, lag_max: int) -> tuple:
-        if lag_max not in self._acf:
-            self._acf[lag_max] = acf_bases(self.cfg.frame_size, lag_max,
-                                           self.device)
-        return self._acf[lag_max]
+        with self._acf_lock:  # request threads of a server share the cache
+            if lag_max not in self._acf:
+                self._acf[lag_max] = acf_bases(self.cfg.frame_size, lag_max,
+                                               self.device)
+            return self._acf[lag_max]
 
     # -- host side ----------------------------------------------------------
 

@@ -238,7 +238,7 @@ def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter, window,
                 _stream(dev),
             )
         _build.check(err, "view_features")
-        LAUNCHES["view_features"] += 1
+        _build.count("view_features")
     return {"energy": energy, "zcr": zcr, "entropy": entropy, "mfcc": mfcc}
 
 
@@ -282,5 +282,5 @@ def fused_view_pitch(rows, *, merged, nyq_b, inv_live, inv_nyq, lag_min: int,
                 f0.data_ptr(), conf.data_ptr(), _stream(dev),
             )
         _build.check(err, "view_pitch")
-        LAUNCHES["view_pitch"] += 1
+        _build.count("view_pitch")
     return f0, conf

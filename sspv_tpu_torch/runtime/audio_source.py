@@ -273,12 +273,14 @@ class PlaylistAudioSource(AudioSource):
         self.exhausted = True
 
 
-def _resample_to(arr: np.ndarray, src_sr: int, dst_sr: int) -> np.ndarray:
+def _resample_to(arr: np.ndarray, src_sr: int, dst_sr: int,
+                 device=None) -> np.ndarray:
     """Polyphase resample to ``dst_sr``, clipped back to int16.
 
     With ``Config.TPU_DEVICE_RESAMPLE`` set, whole-file-sized arrays (at
-    least ``TPU_DEVICE_RESAMPLE_MIN_SECONDS`` of audio) run on the card
-    (``ops/resample.py``, SciPy parity); anything shorter takes the host
+    least ``TPU_DEVICE_RESAMPLE_MIN_SECONDS`` of audio) run on ``device``
+    (``ops/resample.py``, SciPy parity; ``None``: the resampler's default,
+    the card); anything shorter takes the host
     SciPy path, so per-chunk callers never pay a round trip to the device.
     A failure of the device call raises: nothing falls back to the host.
     """
@@ -291,7 +293,8 @@ def _resample_to(arr: np.ndarray, src_sr: int, dst_sr: int) -> np.ndarray:
     ):
         from ..ops.resample import resample_to_rate_device
 
-        return resample_to_rate_device(arr, int(src_sr), int(dst_sr))
+        on = {} if device is None else {"device": device}
+        return resample_to_rate_device(arr, int(src_sr), int(dst_sr), **on)
     import scipy.signal as sps
 
     g = math.gcd(int(src_sr), int(dst_sr))

@@ -8,6 +8,7 @@ initialize CUDA or build a kernel: the kernels build at first launch.
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +33,8 @@ def test_import_leaves_jax_sspv_tpu_triton_and_cuda_alone():
         "import sspv_tpu_torch.ops.resample, sspv_tpu_torch.utils.npz_io\n"
         "import sspv_tpu_torch.utils.profiling\n"
         "import sspv_tpu_torch.demo, sspv_tpu_torch.test_system\n"
+        "import sspv_tpu_torch.serve, sspv_tpu_torch.main\n"
+        "import sspv_tpu_torch.ui, sspv_tpu_torch.ui.qt\n"
         "from sspv_tpu_torch import SignalProcessing\n"
         "import torch\n"
         "from sspv_tpu_torch.ops import _build\n"
@@ -40,6 +43,7 @@ def test_import_leaves_jax_sspv_tpu_triton_and_cuda_alone():
         "assert not torch.cuda.is_initialized()\n"
         "assert _build._lib is None\n"
         "assert 'matplotlib' not in sys.modules\n"
+        "assert 'pyqtgraph' not in sys.modules\n"
         "print('clean')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -73,3 +77,39 @@ def test_npz_io_is_a_copy_of_the_original():
     ours = (REPO / "sspv_tpu_torch" / "utils" / "npz_io.py").read_text()
     theirs = (REPO / "sspv_tpu" / "utils" / "npz_io.py").read_text()
     assert ours.replace("sspv_tpu_torch", "sspv_tpu") == theirs
+
+
+# Files of the JAX package with no file at the same path in the port, each
+# with its counterpart or the reason it has none.
+NO_COUNTERPART = {
+    # not ported (ROADMAP.md, "Not to port")
+    "utils/cache.py": "XLA's persistent compile cache; nothing compiles per "
+                      "shape in the port",
+    "warmup.py": "compiles every bucket program ahead of time; the port's "
+                 "kernels build once (ops/_build.py, FeatureService.warmup)",
+    "ops/precision.py": "the TPU's matmul precision plumbing; the port's "
+                        "kernels are fp32 and ops/fp32.py scopes the rest",
+    "utils/native.py": "a g++ framing library; the port frames with NumPy "
+                       "(utils/framing.py)",
+    # the Pallas modules
+    "ops/pallas_view.py": "csrc/view_features.cu, csrc/view_pitch.cu and "
+                          "ops/view_kernels.py (K1, K2)",
+    "ops/pallas_kernels.py": "csrc/frame_features.cu and "
+                             "ops/frame_kernels.py (K3)",
+    "ops/pallas_common.py": "ops/_build.py (build, load and check the "
+                            "kernels)",
+}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every ``.py`` under ``sspv_tpu/`` has the same relative path under
+    ``sspv_tpu_torch/``, or stands in ``NO_COUNTERPART`` with its reason;
+    every entry of that list names a file that exists and has no copy."""
+    jax_files = {str(p.relative_to(REPO / "sspv_tpu"))
+                 for p in (REPO / "sspv_tpu").rglob("*.py")}
+    port_files = {str(p.relative_to(REPO / "sspv_tpu_torch"))
+                  for p in (REPO / "sspv_tpu_torch").rglob("*.py")}
+    assert sorted(jax_files - port_files) == sorted(NO_COUNTERPART)
+    for path in NO_COUNTERPART.values():
+        for name in re.findall(r"\b[\w/]+\.(?:py|cu)\b", path):
+            assert (REPO / "sspv_tpu_torch" / name).exists(), name
