@@ -112,7 +112,29 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     the file with one K1 launch per engine dispatch, the frames of the
     engine phase's samples-mode run, and a ``save_data`` file that
     ``utils.npz_io.validate_session`` accepts;
-13. bounds each kernel by the least work of its function: the operations
+13. drives the port's example harnesses and tools (``examples_runs``), each
+    through its module's own function with the launch counts reset before
+    it: ``python -m sspv_tpu_torch.examples.soak`` for 90 s in its own
+    process, beside ``vad_eval`` (2 proxies x 7 conditions x 60 s and the
+    two variant pipelines: decisions equal to ``EngineVadOracle`` on every
+    frame, the F1 table printed), ``process_files`` over the corpus (each
+    npz equal to ``process_signal_auto``/``pitch_signal_auto`` of its file),
+    ``generate_samples`` (held to the five TPU-made samples committed in
+    ``examples/sample_outputs``: keys, frame counts and VAD equal, the
+    float fields within NMSE 1e-5), ``deep_fuzz`` (60 VAD configurations,
+    20 geometries over both K3 routes, no mismatch) and
+    ``sharded_throughput``; then ``soak_report`` on the soak's log (PASS,
+    host RSS and the card's allocator per call); ``length_probe`` at 3,600
+    and 14,400 s (57,600 s only where ``synth_signal`` makes 14,400 s in
+    10 s) and ``pitch_probe`` at 3,600 s, one launch per call;
+    ``latency_bench`` in both modes (every frame published, one K1 launch
+    per dispatch and per warmed bucket); ``multistream_bench`` flood (8
+    streams x 120 s) and paced (4 x 20 s) over one shared pipeline, each
+    stream's frames equal to the CPU ``process_signal`` of its own signal;
+    ``serve_bench`` against ``python -m sspv_tpu_torch.serve`` in its own
+    process at 1, 4 and 8 clients with 60 s requests in JSON and npz, and
+    once in this process, with no error;
+14. bounds each kernel by the least work of its function: the operations
     of the features or ACF computed with real FFTs and a sparse mel
     filterbank, or the bytes it must move, whichever takes longer; it also
     prints the bound of the kernels' own design: the same FFT operations
@@ -130,6 +152,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import math
 import os
 import subprocess
@@ -197,14 +220,6 @@ def nmse(got, want) -> float:
 
 def host(t) -> np.ndarray:
     return t.detach().cpu().numpy()
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def pitch_kernel_kwargs(pipe) -> dict:
@@ -1837,6 +1852,471 @@ def main_runs(device, sig: np.ndarray, engine: dict, card: str) -> dict:
     return {"seconds": seconds, "launches": launches}
 
 
+# examples_runs: the port's example harnesses and tools, each through its
+# module's own function, at the default FeatureConfig (320/160, a 512-point
+# FFT, 26 mel filters, 13 cepstra).
+LATENCY_SECONDS, LATENCY_WARMUP, LATENCY_CHUNK = 20, 5, 1024
+FLOOD_STREAMS, FLOOD_SECONDS = 8, 120
+PACED_STREAMS, PACED_SECONDS = 4, 20
+BENCH_CLIENTS = (1, 4, 8)
+BENCH_SECONDS = 60  # audio per request
+BENCH_REQUESTS = 4  # per client at each level
+VAD_EVAL_SECONDS = 60  # per condition, the harness's full protocol
+SOAK_SECONDS = 90  # logged every 5 s
+PROBE_LONG_SECONDS = 14_400
+PROBE_LONGEST_SECONDS = 57_600  # only where the host synthesizes fast
+PROBE_SYNTH_LIMIT_S = 10.0  # ... i.e. 14,400 s in at most this
+FUZZ_VAD, FUZZ_GEOMETRIES = 60, 20
+SAMPLE_DIR = ROOT / "examples" / "sample_outputs"  # TPU-made, committed
+NMSE_SAMPLES = 1e-5
+
+
+def captured(fn, *args, echo: bool = True):
+    """``fn(*args)`` with its standard output caught (and printed unless
+    ``echo`` is false): ``(return value, output)``."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(*args)
+    if echo:
+        print(buf.getvalue(), end="")
+    return ret, buf.getvalue()
+
+
+def launches_now() -> dict:
+    from sspv_tpu_torch.ops import LAUNCHES, ROUTES
+
+    return dict(LAUNCHES, **ROUTES)
+
+
+def engine_frames(rt) -> dict:
+    """The frames an engine published, as arrays."""
+    rows = list(rt.processed_data)
+    out = {k: np.array([d[k] for d in rows], np.float32)
+           for k in ("energy", "zcr", "mfcc")}
+    out["entropy"] = np.array([d["spec_entropy"] for d in rows], np.float32)
+    out.update((k, np.array([d[k] for d in rows], np.int32))
+               for k in ("vad", "vad_adaptive"))
+    return out
+
+
+def frames_against_cpu(label: str, got: dict, sig16: np.ndarray,
+                       cpu_pipe) -> None:
+    """Frames against ``process_signal`` of the same samples on the CPU
+    (the plain versions): zcr and VAD equal, the rest NMSE <= 1e-9."""
+    want, _ = cpu_pipe.process_signal(sig16)
+    equal = all(np.array_equal(got[k], host(getattr(want, k)))
+                for k in ("zcr", "vad", "vad_adaptive"))
+    e = {k: nmse(got[k], host(getattr(want, k)))
+         for k in ("energy", "entropy", "mfcc")}
+    require(got["vad"].shape[0] == want.vad.shape[0],
+            f"{label}: {got['vad'].shape[0]} frames of {want.vad.shape[0]}")
+    require(equal, f"{label}: zcr and VAD equal the CPU process_signal")
+    require(max(e.values()) <= NMSE_KERNEL, f"{label}: nmse {e}")
+
+
+def latency_runs(device, card: str) -> dict:
+    """``latency_bench.run_once`` in both modes: every frame published, one
+    K1 launch per dispatch and per bucket it warms."""
+    from sspv_tpu_torch.examples import latency_bench
+
+    out = {}
+    for mode in ("default", "ll"):
+        sync(device)
+        reset_launches()
+        r = latency_bench.run_once(mode, LATENCY_CHUNK, LATENCY_SECONDS,
+                                   LATENCY_WARMUP, device)
+        launches = launches_now()
+        print(json.dumps(r))
+        print(f"latency_bench --mode {mode}: median {r['median_ms']} ms, p90 "
+              f"{r['p90_ms']} ms, max {r['max_ms']} ms over {r['frames']} "
+              f"frames ({LATENCY_SECONDS} s paced in {LATENCY_CHUNK}-sample "
+              f"chunks, first {LATENCY_WARMUP} s dropped; host clock) on "
+              f"{card}; launches {json.dumps(launches)}")
+        require(r["frames_published"] == r["frames_expected"],
+                f"latency {mode}: every frame published")
+        require(r["samples_dispatch"] and launches["view_features"]
+                == r["dispatches"] + len(r["buckets"]),
+                f"latency {mode}: one K1 launch per dispatch and warmed bucket")
+        out[mode] = r
+    return out
+
+
+def multistream_runs(device, card: str) -> dict:
+    """Flood and paced ``multistream_bench`` runs over ONE shared pipeline;
+    every stream's frames held to the CPU ``process_signal`` of its own
+    signal."""
+    from sspv_tpu_torch import FeaturePipeline
+    from sspv_tpu_torch.config import Config
+    from sspv_tpu_torch.examples import multistream_bench
+    from sspv_tpu_torch.examples._sources import speech_signal
+
+    cpu_pipe = FeaturePipeline(device="cpu")
+    saved = Config.PROCESSED_DATA_BUFFER_SIZE
+    Config.PROCESSED_DATA_BUFFER_SIZE = 1 + (FLOOD_SECONDS * SR - 320) // 160
+    out = {}
+    try:
+        for name, run, n, seconds in (
+                ("flood", multistream_bench.run_flood, FLOOD_STREAMS,
+                 FLOOD_SECONDS),
+                ("paced", multistream_bench.run_paced, PACED_STREAMS,
+                 PACED_SECONDS)):
+            sync(device)
+            reset_launches()
+            r, engines = run(n, seconds, device)
+            print(json.dumps(r))
+            require(r["k1_launches"] == r["total_dispatches"] > 0,
+                    f"multistream {name}: one K1 launch per dispatch")
+            if name == "paced":
+                require(r["all_frames_after_drain"],
+                        "multistream paced: all frames after the drain")
+            for i, rt in enumerate(engines):
+                sig16 = speech_signal(seconds, SR, seed=i, tone_hz=120 + 40 * i)
+                frames_against_cpu(f"multistream {name} stream {i}",
+                                   engine_frames(rt), sig16, cpu_pipe)
+            print(f"multistream {name}: {n} streams x {seconds} s, each "
+                  "stream's frames equal the CPU process_signal of its own "
+                  "signal (zcr and VAD exactly, the rest NMSE <= 1e-9) on "
+                  f"{card}")
+            out[name] = r
+    finally:
+        Config.PROCESSED_DATA_BUFFER_SIZE = saved
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_bench_runs(device, tmp: Path, card: str) -> dict:
+    """``serve_bench`` against ``python -m sspv_tpu_torch.serve`` in its own
+    process (``--url``) in JSON and npz, then once in this process."""
+    import signal
+    import urllib.request
+
+    from sspv_tpu_torch.examples import serve_bench
+
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), RTP_SERVE_PORT=str(port))
+    results = {}
+    with open(tmp / "serve.log", "w") as log:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "sspv_tpu_torch.serve", "--device",
+             device.type],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                require(server.poll() is None, "the serve process is up")
+                try:
+                    with urllib.request.urlopen(url + "/healthz", timeout=5):
+                        break
+                except OSError:
+                    require(time.perf_counter() - t0 < 180,
+                            "the serve process answers /healthz")
+                    time.sleep(0.2)
+            print(f"python -m sspv_tpu_torch.serve --device {device.type}: "
+                  "answering "
+                  f"in {time.perf_counter() - t0:.1f} s (start, kernel load, "
+                  "warm-up)")
+            for fmt in ("json", "npz"):
+                results["external", fmt] = serve_bench.run(
+                    BENCH_CLIENTS, BENCH_SECONDS, BENCH_REQUESTS,
+                    fmt=fmt, url=url)
+        finally:
+            server.send_signal(signal.SIGTERM)
+            try:
+                rc = server.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                server.kill()
+                rc = server.wait()
+    require(rc == 0, f"the serve process drained and exited 0 (rc {rc}): "
+            + (tmp / "serve.log").read_text()[-2000:])
+    sync(device)
+    reset_launches()
+    access_log = logging.getLogger("sspv_tpu_torch.serve")
+    level = access_log.level
+    access_log.setLevel(logging.WARNING)  # one line per request otherwise
+    try:
+        for fmt in ("json", "npz"):
+            results["in-process", fmt] = serve_bench.run(
+                BENCH_CLIENTS, BENCH_SECONDS, BENCH_REQUESTS, fmt=fmt,
+                device=device)
+    finally:
+        access_log.setLevel(level)
+    launches = launches_now()
+    requests = 1 + sum(BENCH_CLIENTS) * BENCH_REQUESTS  # the warm-up too
+    print(f"serve_bench in-process launches: {json.dumps(launches)}")
+    require(launches["view_features"] == 2 * requests
+            and launches["view_pitch"] == launches["frame_features"] == 0,
+            "serve_bench in-process: one K1 launch per request")
+    for (where, fmt), lines in results.items():
+        for r in lines:
+            print(json.dumps(dict(r, server=where)))
+            require(r["errors"] == [] and r["backend"] == device.type
+                    and r["requests"] == r["clients"] * BENCH_REQUESTS,
+                    f"serve_bench {where} {fmt} at {r['clients']} clients")
+    print(f"serve_bench, {BENCH_SECONDS} s per /v1/features request "
+          f"(server / fmt / clients: p50 ms, p90 ms, audio-s/s; host clock) "
+          f"on {card}: " + json.dumps({
+              f"{where} {fmt} {r['clients']}": [r["p50_ms"], r["p90_ms"],
+                                                r["audio_s_per_s"]]
+              for (where, fmt), lines in results.items() for r in lines}))
+    return results
+
+
+def vad_eval_runs(device, card: str) -> list:
+    """``vad_eval.evaluate``: 2 proxies x 7 conditions, each with the two
+    variant pipelines; the reference mode equal to ``EngineVadOracle`` on
+    every frame."""
+    from sspv_tpu_torch.examples import vad_eval
+
+    sync(device)
+    reset_launches()
+    lines = list(vad_eval.evaluate(VAD_EVAL_SECONDS, device))
+    launches = launches_now()
+    for r in lines:
+        print(json.dumps(r))
+    ref = [r for r in lines if r["mode"] == "reference"]
+    runs = len(vad_eval.PROXIES) * len(vad_eval.CONDITIONS)
+    print(f"vad_eval ({VAD_EVAL_SECONDS} s per condition; accuracy / recall "
+          f"/ precision / F1 of the reference mode, F1 of each variant) on "
+          f"{card}:")
+    for r in ref:
+        alt = {x["mode"]: x["f1"] for x in lines if x["mode"] != "reference"
+               and (x["proxy"], x["condition"]) == (r["proxy"], r["condition"])}
+        print(f"  {r['proxy']:8s} {r['condition']:12s} {r['accuracy']:5.1f} "
+              f"{r['recall']:5.1f} {r['precision']:5.1f} {r['f1']:5.1f}  "
+              f"oracle {r['oracle_match_pct']}  " + json.dumps(alt))
+    print("vad_eval launches: " + json.dumps(launches))
+    require(len(ref) == runs and len(lines) == 3 * runs,
+            "vad_eval: every proxy, condition and variant")
+    require(all(r["oracle_match_pct"] == 100.0 for r in ref),
+            "vad_eval: decisions equal EngineVadOracle's in every condition")
+    require(launches["view_features"] == 3 * runs,
+            "vad_eval: one K1 launch per pipeline call")
+    return lines
+
+
+def process_files_runs(device, sig: np.ndarray, tmp: Path, card: str) -> None:
+    """``process_files.main`` over the corpus of ``corpus_runs``: each npz
+    equal to ``process_signal_auto`` and ``pitch_signal_auto`` of its file."""
+    from sspv_tpu_torch import FeatureConfig, FeaturePipeline
+    from sspv_tpu_torch.config import Config
+    from sspv_tpu_torch.examples import process_files
+
+    folder, out_dir = tmp / "corpus", tmp / "features"
+    folder.mkdir()
+    files = corpus_files(sig, folder)
+    sync(device)
+    reset_launches()
+    rc, text = captured(process_files.main, [str(folder), str(out_dir),
+                                             "--device", device.type],
+                        echo=False)
+    launches = launches_now()
+    print(text.splitlines()[-1] + f"; launches {json.dumps(launches)}")
+    require(rc == 0 and text.count(".features.npz") == len(files),
+            "process_files: one npz per file")
+    require(launches["view_pitch"] == len(files),
+            "process_files: one K2 launch per file")
+    pipe = FeaturePipeline(FeatureConfig.from_config(Config), device=device)
+    worst, equal, bits, f0_same, frames = 0.0, True, True, 0, 0
+    for path in files:
+        pcm = process_files._decode(path, SR)
+        block, _ = pipe.process_signal_auto(pcm)
+        block = type(block)(*(host(x) for x in block))
+        f0, _ = pipe.pitch_signal_auto(pcm, block.vad)
+        name = Path(path).stem
+        with np.load(out_dir / f"{name}.features.npz") as z:
+            got = {"energy": z["energies"], "zcr": z["zcrs"], "vad": z["vads"],
+                   "entropy": z["spec_entropy"], "mfcc": z["mfcc"],
+                   "vad_adaptive": z["vads_adaptive"], "f0": z["f0"]}
+        want = dict(block._asdict(), f0=f0)
+        require(got["vad"].shape == want["vad"].shape, f"frames of {name}")
+        equal &= all(np.array_equal(got[k], want[k].astype(got[k].dtype))
+                     for k in ("zcr", "vad", "vad_adaptive"))
+        bits &= all(np.array_equal(got[k], want[k].astype(got[k].dtype))
+                    for k in got)
+        worst = max(worst, *(nmse(got[k], want[k])
+                             for k in ("energy", "entropy", "mfcc")))
+        f0_same += int(np.sum(got["f0"] == want["f0"]))
+        frames += want["vad"].shape[0]
+    print(f"process_files vs process_signal_auto / pitch_signal_auto on the "
+          f"card ({len(files)} files, {frames} frames): zcr and VAD equal "
+          f"{equal}, max nmse {worst}, f0 match {f0_same / frames}, every "
+          f"field bit-equal {bits}")
+    require(equal and worst <= NMSE_KERNEL and f0_same / frames >= F0_MATCH,
+            "process_files: every npz equals the single-file entry points")
+
+
+def generate_samples_runs(device, tmp: Path, card: str) -> None:
+    """``generate_samples.generate`` into a temporary folder, held to the
+    five committed TPU-made samples: the same keys and frame counts, the
+    VAD fields equal, the float fields within NMSE 1e-5."""
+    from sspv_tpu_torch.examples import generate_samples
+
+    sync(device)
+    reset_launches()
+    generate_samples.generate(str(tmp / "samples"), device)
+    launches = launches_now()
+    print("generate_samples launches: " + json.dumps(launches))
+    require(launches["view_features"] > 0, "generate_samples launched K1")
+    for name, n in generate_samples.SAMPLES.items():
+        fname = f"voice_processing_data_{name}.npz"
+        with np.load(SAMPLE_DIR / fname) as a, np.load(tmp / "samples" / fname) as b:
+            require(sorted(a.files) == sorted(b.files), f"{name}: keys")
+            require(a["vads"].shape[0] == b["vads"].shape[0] == n,
+                    f"{name}: {n} frames")
+            report = {}
+            for k in a.files:
+                if a[k].ndim == 0:
+                    require(a[k] == b[k], f"{name}: {k}")
+                    continue
+                differ = np.nonzero(a[k] != b[k])[0]
+                report[k] = {"nmse": nmse(b[k], a[k]),
+                             "frames_differing": differ.tolist()}
+            print(f"generate_samples {name} vs the committed TPU-made file: "
+                  + json.dumps(report))
+            for k in ("vads", "vads_adaptive"):
+                require(not report[k]["frames_differing"],
+                        f"{name}: {k} equal the committed file's")
+            for k in ("energies", "zcrs", "spec_entropy"):
+                require(report[k]["nmse"] <= NMSE_SAMPLES,
+                        f"{name}: {k} within NMSE {NMSE_SAMPLES}")
+
+
+def deep_fuzz_runs(device) -> None:
+    from sspv_tpu_torch.tools import deep_fuzz
+
+    sync(device)
+    reset_launches()
+    rc = deep_fuzz.main([str(FUZZ_VAD), str(FUZZ_GEOMETRIES), "--device",
+                         device.type])
+    launches = launches_now()
+    print("deep_fuzz launches: " + json.dumps(launches))
+    require(rc == 0, "deep_fuzz: no mismatch")
+    require(launches["frame_features_fft"] > 0
+            and launches["frame_features_dense"] > 0,
+            "deep_fuzz: both K3 routes ran")
+
+
+def sharded_runs(device) -> None:
+    from sspv_tpu_torch.examples import sharded_throughput
+
+    sync(device)
+    reset_launches()
+    r = sharded_throughput.run(60.0, device)
+    print("sharded_throughput: " + json.dumps(r) + " launches "
+          + json.dumps(launches_now()))
+    require(r["k3_launches"] > 0, "sharded_throughput launched K3")
+
+
+def probe_runs(device, sig: np.ndarray, long_sig: np.ndarray, synth_s: float,
+               card: str) -> None:
+    """``length_probe`` at the hour and at 14,400 s (57,600 s where the
+    host makes it in seconds), ``pitch_probe`` at the hour."""
+    from sspv_tpu_torch.tools import length_probe, pitch_probe
+    from sspv_tpu_torch.utils.synth import synth_signal
+
+    reps = length_probe.REPS
+    runs = [(MAIN_SECONDS, sig, None), (PROBE_LONG_SECONDS, long_sig, synth_s)]
+    if synth_s <= PROBE_SYNTH_LIMIT_S:
+        t0 = time.perf_counter()
+        longest = synth_signal(PROBE_LONGEST_SECONDS, SR)
+        runs.append((PROBE_LONGEST_SECONDS, longest,
+                     time.perf_counter() - t0))
+    else:
+        print(f"length_probe {PROBE_LONGEST_SECONDS} s: not run, "
+              f"synth_signal({PROBE_LONG_SECONDS}) took {synth_s:.1f} s on "
+              f"the host (more than {PROBE_SYNTH_LIMIT_S} s)")
+    for seconds, s, made_in in runs:
+        sync(device)
+        reset_launches()
+        r = dict(length_probe.probe(seconds, device, signal=s), synth_s=made_in)
+        launches = launches_now()
+        print(json.dumps(r) + " launches " + json.dumps(launches))
+        require(launches["view_features"] == 1 + reps
+                and r["frames"] == 1 + (int(seconds * SR) - 320) // 160,
+                f"length_probe {seconds} s: one K1 launch per call")
+    sync(device)
+    reset_launches()
+    r = pitch_probe.probe(MAIN_SECONDS, device, signal=sig)
+    launches = launches_now()
+    print(json.dumps(r) + " launches " + json.dumps(launches))
+    require(launches["view_pitch"] == 1 + reps + 3,
+            "pitch_probe: one K2 launch per call")
+
+
+def soak_report_runs(soak, log: Path, soak_device: str, card: str) -> dict:
+    """Waits for the soak process, then ``soak_report`` on its log."""
+    from sspv_tpu_torch.tools import soak_report
+
+    try:
+        rc = soak.wait(timeout=SOAK_SECONDS + 180)
+    except subprocess.TimeoutExpired:
+        soak.kill()
+        soak.wait()
+        rc = None
+    text = log.read_text()
+    print(text, end="")
+    _, out = captured(soak_report.main, [str(log), "--settle", "10"])
+    rep = json.loads(out)
+    require(rc == 0 and rep.get("verdict") == "PASS" and rep["errors"] == 0,
+            f"soak: PASS (rc {rc})")
+    print(f"soak {SOAK_SECONDS} s on {card}: host RSS "
+          f"{rep.get('rss_mb_per_call')} MB per call, card "
+          f"{rep.get('cuda_mb_per_call')} MB per call over "
+          f"{rep.get('device_calls')} calls ({rep['rss_slope_mb_per_s']} / "
+          f"{rep.get('cuda_slope_mb_per_s')} MB/s)")
+    require("cuda_mb_per_call" in rep or soak_device != "cuda",
+            "soak: the card's allocator logged")
+    return rep
+
+
+def examples_runs(device, sig: np.ndarray, card: str) -> None:
+    """The example harnesses and the tools of the port on the card. The
+    soak runs in its own process beside the harnesses that print no time;
+    the timed ones run after it."""
+    from sspv_tpu_torch.utils.synth import synth_signal
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        log = tmp / "soak.log"
+        with open(log, "w") as out:
+            soak = subprocess.Popen(
+                [sys.executable, "-m", "sspv_tpu_torch.examples.soak",
+                 str(SOAK_SECONDS), "--device", device.type],
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                stdout=out, stderr=subprocess.STDOUT)
+        try:
+            t0 = time.perf_counter()
+            long_sig = synth_signal(PROBE_LONG_SECONDS, SR)
+            synth_s = time.perf_counter() - t0
+            print(f"synth_signal({PROBE_LONG_SECONDS}): {synth_s:.2f} s on "
+                  "the host")
+            vad_eval_runs(device, card)
+            process_files_runs(device, sig, tmp, card)
+            generate_samples_runs(device, tmp, card)
+            deep_fuzz_runs(device)
+            sharded_runs(device)
+            soak_report_runs(soak, log, device.type, card)
+        finally:
+            if soak.poll() is None:
+                soak.kill()
+                soak.wait()
+        probe_runs(device, sig, long_sig, synth_s, card)
+        del long_sig
+        latency_runs(device, card)
+        multistream_runs(device, card)
+        serve_bench_runs(device, tmp, card)
+    print(f"examples_runs: {time.perf_counter() - t_phase:.1f} s")
+
+
 def time_ms(fn, reps: int = 5) -> list[float]:
     """Device milliseconds of ``reps`` warm calls of ``fn``, each between
     its own pair of CUDA events (the gap a host-bound call leaves on the
@@ -2037,13 +2517,14 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(card)
     sys.path.insert(0, str(ROOT))
     from sspv_tpu_torch import FeatureConfig, FeaturePipeline
     from sspv_tpu_torch.ops import _build
+    from sspv_tpu_torch.utils.device import card_line
 
     device = torch.device("cuda", 0)
+    card = card_line(device)
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -2083,6 +2564,7 @@ def main() -> int:
     batch_timings(device, main["signal"], card)
     serve_runs(device, main["signal"], err, card)
     main_runs(device, main["signal"], engine, card)
+    examples_runs(device, main["signal"], card)
     for kernel, run in engine.items():
         mode = "samples" if kernel == "view_features" else "frames"
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "
