@@ -134,13 +134,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     ``serve_bench`` against ``python -m sspv_tpu_torch.serve`` in its own
     process at 1, 4 and 8 clients with 60 s requests in JSON and npz, and
     once in this process, with no error;
-14. bounds each kernel by the least work of its function: the operations
+14. drives the port's measuring tools (``tools_runs``), each with the
+    launch counts reset before it: ``time_blocked_vad`` on the hour (both
+    trailing-sum forms: one K1 launch per call, at most 3 decisions apart,
+    each equal to the engine oracle on the first 600 s);
+    ``vad_microbench`` at the 32,768-frame block and the hour's 360,192
+    padded frames (the float64 blocked and matmul sums within 1e-12 of the
+    direct sum; the ``F.conv1d`` yardstick printed only);
+    ``resample_probe`` at 60 and 600 s on four rate pairs (one LSB at
+    most, through the device resampler); ``ablate_bench`` on the hour
+    (every ``full_*`` variant within NMSE 1e-5 of the oracle, K1 launched
+    by ``features_no_vad``); ``roofline`` on the hour and on the probes'
+    14,400 s signal (one K1 launch per ``feat_only`` call, one K2 launch
+    per ``pitch_kernel_only`` call, their analytic bounds those of step
+    15), then ``python -m sspv_tpu_torch.tools.roofline --trace`` in its
+    own process on the hour: a ``torch.profiler`` trace of the features,
+    the VAD and the pitch call (device idle share, launches per call, top
+    kernels, longest gaps); it prints each tool's seconds;
+15. bounds each kernel by the least work of its function: the operations
     of the features or ACF computed with real FFTs and a sparse mel
     filterbank, or the bytes it must move, whichever takes longer; it also
     prints the bound of the kernels' own design: the same FFT operations
     and bytes or the shared-memory traffic of their stages and tails,
-    whichever is larger. The mesh wrappers' bounds are K1's and K2's at
-    the same shape.
+    whichever is larger (``sspv_tpu_torch.tools.roofline.kernel_bound``,
+    from the configuration and the frame count). The mesh wrappers'
+    bounds are K1's and K2's at the same shape.
 
 Any failed check raises. The last lines are the card, one JSON object with
 every kernel's launches, error, times and bound, and the
@@ -196,12 +214,6 @@ CORPUS_SECONDS = (1.5, 1.55, 1.6, 1.7, 1.8, 1.9, 1.95, 2.0,
 OVERSIZED_SECONDS = 2100
 CORPUS_BATCH = 8
 CLI_FILES = 5
-# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
-# its full 700 W): fp32 operations outside the tensor cores, device memory.
-FP32_OPS_PER_S = 67e12
-HBM_BYTES_PER_S = 3.35e12
-# Shared memory: 128 bytes per clock and SM, 132 SMs, 1.98 GHz boost clock.
-SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 NMSE_KERNEL = 1e-9  # fp32 kernel vs fp32 plain version: rounding order only
 NMSE_ORACLE = 1e-5  # the repo's feature-parity gate against the oracle
 F0_MATCH = 0.999  # argmax picks may flip where two lags tie to rounding
@@ -2072,7 +2084,7 @@ def serve_bench_runs(device, tmp: Path, card: str) -> dict:
 def vad_eval_runs(device, card: str) -> list:
     """``vad_eval.evaluate``: 2 proxies x 7 conditions, each with the two
     variant pipelines; the reference mode equal to ``EngineVadOracle`` on
-    every frame."""
+    every frame, in the composite and in the adaptive gate alone."""
     from sspv_tpu_torch.examples import vad_eval
 
     sync(device)
@@ -2091,12 +2103,15 @@ def vad_eval_runs(device, card: str) -> list:
                and (x["proxy"], x["condition"]) == (r["proxy"], r["condition"])}
         print(f"  {r['proxy']:8s} {r['condition']:12s} {r['accuracy']:5.1f} "
               f"{r['recall']:5.1f} {r['precision']:5.1f} {r['f1']:5.1f}  "
-              f"oracle {r['oracle_match_pct']}  " + json.dumps(alt))
+              f"oracle {r['oracle_match_pct']} / "
+              f"{r['oracle_adaptive_match_pct']}  " + json.dumps(alt))
     print("vad_eval launches: " + json.dumps(launches))
     require(len(ref) == runs and len(lines) == 3 * runs,
             "vad_eval: every proxy, condition and variant")
-    require(all(r["oracle_match_pct"] == 100.0 for r in ref),
-            "vad_eval: decisions equal EngineVadOracle's in every condition")
+    require(all(r["oracle_match_pct"] == 100.0
+                and r["oracle_adaptive_match_pct"] == 100.0 for r in ref),
+            "vad_eval: decisions and adaptive decisions equal "
+            "EngineVadOracle's in every condition")
     require(launches["view_features"] == 3 * runs,
             "vad_eval: one K1 launch per pipeline call")
     return lines
@@ -2277,10 +2292,11 @@ def soak_report_runs(soak, log: Path, soak_device: str, card: str) -> dict:
     return rep
 
 
-def examples_runs(device, sig: np.ndarray, card: str) -> None:
+def examples_runs(device, sig: np.ndarray, card: str) -> np.ndarray:
     """The example harnesses and the tools of the port on the card. The
     soak runs in its own process beside the harnesses that print no time;
-    the timed ones run after it."""
+    the timed ones run after it. Returns the 14,400 s signal the probes
+    ran on, for ``tools_runs``."""
     from sspv_tpu_torch.utils.synth import synth_signal
 
     t_phase = time.perf_counter()
@@ -2310,11 +2326,183 @@ def examples_runs(device, sig: np.ndarray, card: str) -> None:
                 soak.kill()
                 soak.wait()
         probe_runs(device, sig, long_sig, synth_s, card)
-        del long_sig
         latency_runs(device, card)
         multistream_runs(device, card)
         serve_bench_runs(device, tmp, card)
     print(f"examples_runs: {time.perf_counter() - t_phase:.1f} s")
+    return long_sig
+
+
+RESAMPLE_PROBE_SECONDS = (60, 600)
+ROOFLINE_TRACES = ("pitch", "feat", "vad")
+MAX_REL_SUMS = 1e-12  # float64 window sums against the direct sum
+
+
+def tool_seconds(name: str, t0: float) -> None:
+    print(f"tools_runs {name}: {time.perf_counter() - t0:.1f} s")
+
+
+def time_blocked_vad_runs(device, pipe, main: dict) -> None:
+    """Both trailing-sum forms on the hour: one K1 launch per call, at
+    most 3 decisions apart (expected 0), each equal to the engine oracle
+    on the first 600 s."""
+    from sspv_tpu_torch.tools import time_blocked_vad as tbv
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import oracle
+
+    vf = 1 + (CHECK_SECONDS * SR - 320) // 160
+    block, _ = pipe.process_signal_device(main["rows"][: vf + 1])
+    want = oracle.EngineVadOracle().run_all(
+        host(block.energy), host(block.zcr), host(block.entropy))[0]
+    sync(device)
+    reset_launches()
+    lines, vads = tbv.run(MAIN_SECONDS, device, signal=main["signal"])
+    launches = launches_now()
+    for line in lines:
+        print(json.dumps(line))
+    mismatches = lines[-1]["decision_mismatches"]
+    print(f"time_blocked_vad: {mismatches} decision mismatches, launches "
+          + json.dumps(launches))
+    require(launches["view_features"] == len(tbv.IMPLS) * (1 + tbv.REPS),
+            "time_blocked_vad: one K1 launch per call")
+    require(mismatches <= tbv.MAX_MISMATCHES,
+            f"time_blocked_vad: {mismatches} decision mismatches")
+    for impl, vad in vads.items():
+        require(np.array_equal(vad[:vf], want),
+                f"time_blocked_vad {impl}: VAD equal to the engine oracle")
+
+
+def vad_microbench_runs(device) -> None:
+    """The VAD's pieces at the block and the hour's full-length shape:
+    the float64 sums within 1e-12 of the direct sum."""
+    from sspv_tpu_torch.tools import vad_microbench as vmb
+
+    for frames in (vmb.BLOCK_FRAMES, vmb.HOUR_FRAMES):
+        sync(device)
+        for line in vmb.bench(vmb.padded(frames), device, valid_frames=frames):
+            print(json.dumps(line))
+            if line["variant"] in ("blocked", "matmul"):
+                require(line["max_rel_vs_direct"] <= MAX_REL_SUMS,
+                        f"vad_microbench {line['variant']} at {frames} "
+                        f"frames: {line['max_rel_vs_direct']}")
+
+
+def resample_probe_runs(device) -> None:
+    """Eight lines (four rate pairs at 60 and 600 s): one LSB at most,
+    each through the device resampler."""
+    from sspv_tpu_torch.tools import resample_probe
+
+    for seconds in RESAMPLE_PROBE_SECONDS:
+        for src, dst in resample_probe.RATE_PAIRS:
+            sync(device)
+            r = resample_probe.probe(seconds, src, dst, device)
+            print(json.dumps(r))
+            require(r["max_int16_lsb_diff"] <= 1 and r["resample_calls"] > 0,
+                    f"resample_probe {seconds} s {src} -> {dst}: "
+                    f"{r['max_int16_lsb_diff']} LSB, "
+                    f"{r['resample_calls']} device calls")
+
+
+def ablate_runs(device, main: dict) -> None:
+    """The stage ablation on the hour: every full_* line within the
+    oracle gate, K1 launched by features_no_vad."""
+    from sspv_tpu_torch.tools import ablate_bench
+
+    sync(device)
+    reset_launches()
+    for line in ablate_bench.run(MAIN_SECONDS, device, signal=main["signal"]):
+        print(json.dumps(line))
+        name = line.get("variant", "")
+        if name.startswith("full_"):
+            require(line["nmse_max"] <= NMSE_ORACLE,
+                    f"ablate_bench {name}: nmse {line['nmse_max']}")
+        if name == "features_no_vad":
+            require(line["launches"].get("view_features", 0)
+                    == 1 + ablate_bench.REPS,
+                    "ablate_bench features_no_vad: one K1 launch per call")
+
+
+def roofline_runs(device, seconds: int, sig: np.ndarray,
+                  bounds: dict | None) -> None:
+    """The decomposition at ``seconds`` on ``sig``: K1 on feat_only, K2 on
+    pitch_kernel_only, their analytic bounds at the frame count (those of
+    ``kernel_bounds``, ``bounds``, where given)."""
+    from sspv_tpu_torch.tools import roofline
+
+    sync(device)
+    reset_launches()
+    n = 1 + (seconds * SR - 320) // 160
+    for line in roofline.run(seconds, device, signal=sig):
+        print(json.dumps(line))
+        kernel = roofline.ANALYTIC.get(line["program"])
+        if kernel:
+            require(line["launches"] == {kernel: line["calls"]},
+                    f"roofline {line['program']} at {seconds} s: one "
+                    f"{kernel} launch per call, nothing else "
+                    f"({line['launches']})")
+            a = line["analytic"]
+            require(a["frames"] == n and (
+                bounds is None or ((a["bound_ms"], a["bound_by"]),
+                                   a["design_bound_ms"]) == bounds[kernel]),
+                    f"roofline {line['program']}: the bounds of "
+                    "kernel_bounds")
+
+
+def roofline_trace_runs(device, seconds: int, traces) -> None:
+    """``python -m sspv_tpu_torch.tools.roofline --trace`` over ``traces``
+    in a process of its own (a profiler that traced before in a process
+    may drop kernels): one trace line per target."""
+    out = subprocess.run(
+        [sys.executable, "-m", "sspv_tpu_torch.tools.roofline", "--seconds",
+         str(seconds), "--only", "rows_only", "--rounds", "1", "--trace",
+         "--trace-target", ",".join(traces), "--device", device.type],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=600)
+    lines = [json.loads(x) for x in out.stdout.splitlines()
+             if x.startswith("{")]
+    print(out.stdout, end="")
+    require(out.returncode == 0, f"roofline --trace: rc {out.returncode}, "
+            + out.stderr[-2000:])
+    got = [x for x in lines if "trace_target" in x]
+    require([x["trace_target"] for x in got] == list(traces),
+            "roofline --trace: one line per target")
+    for x in got:
+        print(f"roofline trace {x['trace_target']} at {seconds} s: "
+              f"{x['device_trace']}, idle share {x['idle_share']} profiled, "
+              f"{x['idle_share_unprofiled']} unprofiled, "
+              f"{x['kernel_launches_per_call']} kernels per call, "
+              f"{x['attempts']} attempt(s)")
+
+
+def tools_runs(device, pipe, main: dict, pipe400, frames_run,
+               long_sig: np.ndarray, card: str) -> None:
+    """The port's last five tools on the card, each through its module's
+    functions with the launch counts reset before it: ``time_blocked_vad``
+    and ``ablate_bench`` on the hour, ``vad_microbench`` at the block and
+    the hour's shape, ``resample_probe`` at 60 and 600 s, ``roofline`` at
+    the hour and at 14,400 s, then its trace of the features, the VAD and
+    the pitch call at the hour in a process of its own."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    time_blocked_vad_runs(device, pipe, main)
+    tool_seconds("time_blocked_vad", t0)
+    t0 = time.perf_counter()
+    vad_microbench_runs(device)
+    tool_seconds("vad_microbench", t0)
+    t0 = time.perf_counter()
+    resample_probe_runs(device)
+    tool_seconds("resample_probe", t0)
+    t0 = time.perf_counter()
+    ablate_runs(device, main)
+    tool_seconds("ablate_bench", t0)
+    t0 = time.perf_counter()
+    bounds = kernel_bounds(pipe, main["rows"], pipe400, frames_run["frames"])
+    roofline_runs(device, MAIN_SECONDS, main["signal"], bounds)
+    roofline_runs(device, PROBE_LONG_SECONDS, long_sig, None)
+    roofline_trace_runs(device, MAIN_SECONDS, ROOFLINE_TRACES)
+    tool_seconds("roofline", t0)
+    print(f"tools_runs: {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 def time_ms(fn, reps: int = 5) -> list[float]:
@@ -2414,99 +2602,20 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
     return out
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least ms of the work on the card and what bounds it."""
-    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
-def rfft_ops(n: int) -> float:
-    """Operations of one real-input FFT of ``n`` points: half the
-    ``5 n log2 n`` of a radix-2 complex FFT."""
-    return 2.5 * n * math.log2(n)
-
-
-def rfft_smem_floats(n_fft: int) -> int:
-    """Shared-memory floats one frame's real FFT in ``csrc/fft.cuh`` reads
-    and writes: the packed samples, every stage's sequence in and out and
-    its twiddles, and the untangling step's reads."""
-    from sspv_tpu_torch.ops import fft_tables
-
-    stages = sum(2 * n_fft + fft_tables.stage_twiddle_floats(n_left, r)
-                 * (n_fft // 2 // n_left)
-                 for n_left, _, r in fft_tables.stage_plan(n_fft))
-    return n_fft + stages + 6 * (n_fft // 4 + 1)
-
-
 def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     """Each kernel's bounds at its main-path shape, as ``{name: ((ms, what
-    bounds it), design ms)}``. Both count the bytes the function must move
-    (each input read once, each output written once) and fp32 operations
-    (a multiply-add is 2). The first counts the least operations of the
-    function: the power spectrum and the ACF by real FFTs, the mel
-    filterbank by its nonzero weights. The second is the ceiling of the
-    kernel's own design: the FFTs at the kernel's transform size (K2's
-    power of two against the least size the ACF needs), or the
-    shared-memory traffic of the design (the FFT's stages and the tail's
-    rows) over ``SMEM_BYTES_PER_S``, whichever is larger."""
-    from sspv_tpu_torch.ops import fft_tables
+    bounds it), design ms)}``, from ``sspv_tpu_torch.tools.roofline``'s
+    ``kernel_bound`` (shapes alone: the configuration and the frame
+    count), the one copy of that arithmetic."""
+    from sspv_tpu_torch.tools.roofline import kernel_bound
 
-    c = pipe.cfg
-    n, hop = rows.shape[0] - 1, rows.shape[1]
-    frame, bins = 2 * hop, c.n_fft // 2 + 1
-    nf, nc = c.num_filters, c.num_ceps
-    fb_nnz = int((pipe._view_consts["fb_t"] != 0).sum())
-    # power, mel, log, DCT, lifter, entropy
-    tail = 3 * bins + 2 * fb_nnz + nf + 2 * nf * nc + nc + 5 * bins
-    frame_ops = 3 * frame  # window, energy, sign changes
-    # the kernel reads the rows, the window, its twiddle table, the
-    # filterbank with its ranges and the cepstral constants
-    k1_bytes = (4 * (n + 1) * hop
-                + 4 * (frame + fft_tables.twiddle_table(c.n_fft).size
-                       + bins * nf + 2 * nf + nf * nc + nc)
-                + n * 4 * (3 + nc))
-    # the FFT, the power row out, the ranged mel sum, the log-mel row, the
-    # entropy's two passes, the DCT
-    k1_smem = n * 4 * (rfft_smem_floats(c.n_fft) + bins + fb_nnz + nf
-                       + 2 * bins + nf * nc)
-    k1_ops = n * (rfft_ops(c.n_fft) + frame_ops + tail)
-    k1 = (k1_ops, k1_ops, k1_bytes, k1_smem)
-    pk = pitch_kernel_kwargs(pipe)
-    nfft_least, n_lags = pk["merged"].shape[1], pk["inv_live"].shape[1]
-    # the least transform of the linear ACF (frame + lag_max rounded up to
-    # 128) against the kernel's power of two; power spectrum,
-    # normalization and peak pick; the kernel reads the rows and its
-    # twiddle table and writes f0 and conf
-    n_acf = fft_tables.acf_fft_size(frame, n_lags)  # the kernel's transform
-    k2_bytes = 4 * (n + 1) * hop + 4 * fft_tables.twiddle_table(n_acf).size \
-        + 8 * n
-    acf_rest = lambda nfft: 3 * (nfft // 2 + 1) + 3 * n_lags
-    # two FFTs, the power row out and in, its even extension, the ACF row
-    k2_smem = n * 4 * (2 * rfft_smem_floats(n_acf) + 2 * (n_acf // 2 + 1)
-                       + n_acf + 2 * n_lags)
-    k2 = (n * (2 * rfft_ops(nfft_least) + acf_rest(nfft_least)),
-          n * (2 * rfft_ops(n_acf) + acf_rest(n_acf)), k2_bytes, k2_smem)
-    m, fr = frames.shape
-    c4 = pipe400.cfg
-    bins4, nf4, nc4 = c4.n_fft // 2 + 1, c4.num_filters, c4.num_ceps
-    nnz4 = int((pipe400._frame_consts["fb_t"] != 0).sum())
-    tail4 = 3 * bins4 + 2 * nnz4 + nf4 + 2 * nf4 * nc4 + nc4 + 5 * bins4
-    k3_bytes = (4 * m * fr + 4 * (fr + fft_tables.twiddle_table(c4.n_fft).size
-                                  + bins4 * nf4 + 2 * nf4 + nf4 * nc4 + nc4)
-                + m * 4 * (3 + nc4))
-    # the FFT, the power row out, the ranged mel sum, the log-mel row, the
-    # entropy's two passes, the DCT
-    k3_smem = m * 4 * (rfft_smem_floats(c4.n_fft) + bins4 + nnz4 + nf4
-                       + 2 * bins4 + nf4 * nc4)
-    k3_ops = m * (rfft_ops(c4.n_fft) + 3 * fr + tail4)
-    k3 = (k3_ops, k3_ops, k3_bytes, k3_smem)
-    return {name: (bound(ops, nbytes),
-                   max(bound(design_ops, nbytes)[0],
-                       1e3 * smem / SMEM_BYTES_PER_S))
-            for name, (ops, design_ops, nbytes, smem) in
-            (("view_features", k1), ("view_pitch", k2),
-             ("frame_features", k3))}
+    out = {}
+    for name, cfg, n in (("view_features", pipe.cfg, rows.shape[0] - 1),
+                         ("view_pitch", pipe.cfg, rows.shape[0] - 1),
+                         ("frame_features", pipe400.cfg, frames.shape[0])):
+        b = kernel_bound(name, cfg, n)
+        out[name] = ((b["bound_ms"], b["bound_by"]), b["design_bound_ms"])
+    return out
 
 
 def main() -> int:
@@ -2564,12 +2673,16 @@ def main() -> int:
     batch_timings(device, main["signal"], card)
     serve_runs(device, main["signal"], err, card)
     main_runs(device, main["signal"], engine, card)
-    examples_runs(device, main["signal"], card)
+    long_sig = examples_runs(device, main["signal"], card)
+    tools_runs(device, pipe, main, pipe400, frames_run, long_sig, card)
+    del long_sig
     for kernel, run in engine.items():
         mode = "samples" if kernel == "view_features" else "frames"
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "
               f"audio-s/s (host clock, {ENGINE_SECONDS} s of audio) on {card}")
     bounds = kernel_bounds(pipe, main["rows"], pipe400, frames_run["frames"])
+    from sspv_tpu_torch.tools.roofline import SMEM_BYTES_PER_S
+
     print("design bound ms (FFT operations, bytes, or the design's "
           f"shared-memory traffic at {SMEM_BYTES_PER_S / 1e12:.1f} TB/s, "
           "whichever is largest): "

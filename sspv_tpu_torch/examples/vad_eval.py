@@ -30,8 +30,9 @@ The synthesis and scoring functions are the JAX package's example's own,
 unchanged (``tests/test_torch_examples.py`` holds them source-equal). The
 side-by-side oracle is ``tests/oracle.py``'s ``EngineVadOracle`` on the same
 features; ``oracle_match_pct`` is the share of frames where the two decide
-alike (the port compares in float64, the oracle in float32: a feature
-within one float32 rounding of its threshold could decide apart).
+alike, ``oracle_adaptive_match_pct`` the same for the adaptive gate alone
+(both blend the adaptive thresholds in float64 and compare them with the
+float32 features in float32).
 """
 
 from __future__ import annotations
@@ -464,13 +465,17 @@ def evaluate(seconds: float = 60.0, device="cuda"):
                 release_off=base_cfg.release_off,
                 history_len=base_cfg.history_len,
             )
-            ora_vad, _ = oracle.run_all(block.energy, block.zcr, block.entropy)
+            ora_vad, ora_adp = oracle.run_all(block.energy, block.zcr,
+                                              block.entropy)
             yield {
                 "proxy": proxy, "condition": name, "snr_db": snr,
                 "noise": noise, "mode": "reference",
                 **score(pred, truth),
                 "oracle_match_pct": round(
                     100.0 * float(np.mean(pred == ora_vad.astype(bool))), 2
+                ),
+                "oracle_adaptive_match_pct": round(
+                    100.0 * float(np.mean(block.vad_adaptive == ora_adp)), 2
                 ),
                 "gates": gate_diagnostics(block, truth, base_cfg),
                 "confusion": confusion_breakdown(

@@ -24,15 +24,17 @@ engine.py:253-288):
 Plain tensor ops on the device of the inputs; no step of it is a kernel in
 the JAX package either.
 
-The decisions are taken in float64, the precision of the reference engine
-(its features go through Python floats and ``np.mean``): the window sums, the
-means, the blended thresholds and the comparisons. A window of at most 256
-float32 values sums in float64 exactly (when its values lie within a factor
-2**21 of each other) or far below float32 resolution, so the port's
-decisions equal the sequential engine oracle even where a feature ties its
-threshold to float32 rounding, as repeated zero-crossing counts do. The JAX
-package decides in float32 (the TPU has no float64); the two agree except at
-such ties.
+The thresholds are those of the reference engine, whose history goes
+through Python floats and ``np.mean``: the window sums, the means and the
+blend are float64. A window of at most 256 float32 values sums in float64
+exactly (when its values lie within a factor 2**21 of each other) or far
+below float32 resolution, so a repeated zero-crossing count that ties its
+trailing mean stays a tie (a float32 mean flips it). The adaptive gate then
+compares the float32 feature with its threshold rounded to float32, as the
+reference does (NumPy compares a float32 array with a Python float in
+float32, ``tests/oracle.py`` ``adaptive_vad``) and as the JAX package does
+(everything in float32). The fixed gates compare in float64, as the
+reference's Python floats do.
 """
 
 from __future__ import annotations
@@ -369,7 +371,9 @@ def streaming_vad(
     th_z = (a * z_mean + (1 - a) * z).clamp_max(max_zcr_threshold)
     if float(adaptive_margin) != 1.0:  # opt-in, not reference semantics
         th_e = th_e * float(adaptive_margin)
-    vad_adaptive = (e > th_e) & (z < th_z)
+    # the reference's comparison: float32 feature, threshold rounded to it
+    vad_adaptive = ((energy.to(torch.float32) > th_e.to(torch.float32))
+                    & (zcr.to(torch.float32) < th_z.to(torch.float32)))
 
     vad_initial = (e > energy_threshold) & (
         (z < zcr_threshold) | (h < entropy_voice_max)

@@ -1,8 +1,9 @@
 """Synthetic speech-like audio and the NumPy/SciPy reference features of it.
 
-The port's copies of ``synth_signal`` and ``_oracle_features`` from the JAX
-package's benchmark script (``bench.py:30`` and ``:442``), so that the port's
-smoke run depends on nothing outside the port;
+The port's copies of ``synth_signal``, ``_oracle_features`` and ``_nmse``
+from the JAX package's benchmark script (``bench.py:30``, ``:442`` and
+``:421``), so that the port's smoke run and tools depend on nothing outside
+the port;
 ``tests/test_torch_synth.py`` holds them ``np.array_equal`` to the
 originals.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["oracle_features", "synth_signal"]
+__all__ = ["nmse", "oracle_features", "synth_signal"]
 
 
 def synth_signal(seconds: float, sr: int = 16000, seed: int = 0) -> np.ndarray:
@@ -28,6 +29,13 @@ def synth_signal(seconds: float, sr: int = 16000, seed: int = 0) -> np.ndarray:
     sig = np.where(voiced, 6000 * np.sin(2 * np.pi * 130 * t) + 2000 * np.sin(2 * np.pi * 260 * t), sig)
     sig = np.where(noise, rng.normal(0, 2000, n), sig)
     return sig.astype(np.float32)
+
+
+def nmse(got, want) -> float:
+    """Normalized mean squared error of ``got`` against ``want``."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.mean((got - want) ** 2) / max(np.mean(want**2), 1e-12))
 
 
 def oracle_features(sig: np.ndarray) -> dict:

@@ -31,7 +31,16 @@ from sspv_tpu_torch.examples import (
     soak,
     vad_eval,
 )
-from sspv_tpu_torch.tools import deep_fuzz, length_probe, pitch_probe
+from sspv_tpu_torch.tools import (
+    ablate_bench,
+    deep_fuzz,
+    length_probe,
+    pitch_probe,
+    resample_probe,
+    roofline,
+    time_blocked_vad,
+    vad_microbench,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SR = 16000
@@ -130,7 +139,8 @@ def test_vad_eval_synthesis_equals_the_original(noise):
 
 def test_vad_eval_decisions_match_the_jax_package_and_the_oracle():
     """4 s per condition on both proxies: every reference line matches the
-    oracle on every frame, and the port's decisions equal the JAX
+    oracle on every frame (the composite and the adaptive gate alone), and
+    the port's decisions equal the JAX
     package's except where the JAX decision differs from the oracle's."""
     from sspv_tpu.ops.pipeline import FeatureConfig as JConfig
     from sspv_tpu.ops.pipeline import FeaturePipeline as JPipeline
@@ -142,6 +152,7 @@ def test_vad_eval_decisions_match_the_jax_package_and_the_oracle():
     ref = [r for r in lines if r["mode"] == "reference"]
     assert len(ref) == runs and len(lines) == 3 * runs
     assert all(r["oracle_match_pct"] == 100.0 for r in ref)
+    assert all(r["oracle_adaptive_match_pct"] == 100.0 for r in ref)
     assert {r["device"] for r in lines} == {"cpu"}
 
     cfg = FeatureConfig.from_config(Config)
@@ -352,6 +363,12 @@ ENTRY_POINTS = {
     "length_probe": (length_probe.main, ["1"]),
     "pitch_probe": (pitch_probe.main, ["1"]),
     "deep_fuzz": (deep_fuzz.main, ["1", "1"]),
+    "time_blocked_vad": (time_blocked_vad.main, ["1"]),
+    "vad_microbench": (vad_microbench.main, ["--frames", "256"]),
+    "resample_probe": (resample_probe.main, ["0.1"]),
+    "ablate_bench": (ablate_bench.main, ["1"]),
+    "roofline": (roofline.main, ["--seconds", "1"]),
+    "roofline --trace": (roofline.main, ["--seconds", "1", "--trace"]),
 }
 
 

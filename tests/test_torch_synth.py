@@ -26,3 +26,12 @@ def test_oracle_features_equal_bench(seconds):
     for k in want:
         assert got[k].shape == want[k].shape
         assert np.array_equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("scale", [0.0, 1e-3, 1.0])
+def test_nmse_equals_bench(scale):
+    rng = np.random.default_rng(3)
+    want = rng.normal(0, 100, (50, 13)).astype(np.float32)
+    got = want + scale * rng.normal(0, 1, want.shape).astype(np.float32)
+    assert synth.nmse(got, want) == bench._nmse(got, want)
+    assert synth.nmse(got, np.zeros_like(want)) == bench._nmse(got, np.zeros_like(want))
