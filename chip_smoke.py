@@ -15,6 +15,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    dense route), and each again on its main path's own input, the engine's
    bucket-padded blocks included (zcr exactly equal, energy/entropy/mfcc
    and pitch confidence NMSE <= 1e-9, F0 equal on >= 99.9 % of frames);
+   then K4, the VAD kernel (``vad_kernel_runs``), on random rows of 1 to
+   400,000 frames and on eight rows at 4,096 frames and at 2,048 s, each
+   with a random state, no mask, a prefix mask with random counts and a
+   mask with holes, on the float32 threshold ties of
+   ``tests/vad_inputs.py``, with the direct and the blocked window sums,
+   twice each (the second call on the state the first left): decisions,
+   adaptive decisions and every field of the new state EQUAL to the plain
+   version's. Every later phase requires K4's launches (one per
+   features+VAD call, engine dispatch, batch on each "data" device and
+   ``process_long`` call) and holds K4 to its plain version on every VAD
+   input of the view path, the frames path, the engine runs and the corpus;
 4. drives the offline view path on one hour of synthetic speech-like audio
    (``utils.synth.synth_signal``): ``process_signal_device`` (features + VAD) and
    ``pitch_track_signal`` on the uploaded rows view, then
@@ -86,7 +97,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    yardstick the port never calls), K1 and K2 also at 322/161:
    the view and frames paths, ``process_long(_pitch)`` per mesh, and
    ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
-   its K3 launch and per-row VAD loop apart; and the engine's
+   its K3 launch and its one VAD call (K4 and its plain version) apart;
+   K4 and its plain version on the hour's full-length VAD call, with
+   ``torch.cummax`` of the same seeds beside them (a yardstick the port
+   never calls); and the engine's
    audio-seconds per second on the host clock;
 11. serves HTTP (``serve_runs``): ``serve.make_server`` over
     ``FeatureService(device)`` on a thread, warmed up; ``/healthz`` must
@@ -214,6 +228,12 @@ CORPUS_SECONDS = (1.5, 1.55, 1.6, 1.7, 1.8, 1.9, 1.95, 2.0,
 OVERSIZED_SECONDS = 2100
 CORPUS_BATCH = 8
 CLI_FILES = 5
+# K4 (the VAD) on random rows: (rows, frames) of one row up to 400,000
+# frames (about 66 minutes of audio per call) and eight rows at 4,096 frames
+# and at 2,048 s, the batch programs' largest bucket
+VAD_KERNEL_SIZES = ((1, 1), (1, 255), (1, 256), (1, 257), (1, 4096),
+                    (1, 65_536), (1, 400_000), (1, 400_128), (8, 4096),
+                    (8, 204_800))
 NMSE_KERNEL = 1e-9  # fp32 kernel vs fp32 plain version: rounding order only
 NMSE_ORACLE = 1e-5  # the repo's feature-parity gate against the oracle
 F0_MATCH = 0.999  # argmax picks may flip where two lags tie to rounding
@@ -312,6 +332,56 @@ def check_zero_frames(pipe, device) -> None:
                 "zero frames give sr/lag_min and conf 0")
 
 
+def vad_kernel_runs(device, err: dict) -> None:
+    """K4 against its plain version on the card (``vad_kernel_runs``):
+    random rows of 1 to 400,000 frames (each with a random state, no mask,
+    a prefix mask and a mask with holes), eight rows with random
+    ``n_valid``, the float32 threshold ties, each with the direct and the
+    blocked sums, and every one again on the states it left (two calls
+    that carry the state). Decisions, adaptive decisions and every field
+    of the new state must be equal."""
+    import torch
+
+    from sspv_tpu_torch.ops import vad as vad_ops
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import vad_inputs
+
+    cases = 0
+    for b, f in VAD_KERNEL_SIZES:
+        rows = vad_inputs.vad_rows(b, f, seed=b + f, device=device)
+        for impl in ("conv", "blocked"):
+            kw = dict(vad_inputs.GATES, trailing_impl=impl)
+            for mask in ("none", "prefix", "holes"):
+                e, z, h, state = rows
+                valid = vad_inputs.row_mask(mask, b, f, seed=f, device=device)
+                for call in range(2):
+                    require(not vad_parity((e, z, h, state), dict(
+                        kw, valid=valid), err),
+                        f"K4 equals plain: {b} x {f}, {impl}, mask {mask}, "
+                        f"call {call + 1}")
+                    state = vad_ops.streaming_vad(e, z, h, state, valid=valid,
+                                                  **kw)[2]
+                    e = e.flip(-1)
+                cases += 2
+    for tie, make in sorted(vad_inputs.TIES.items()):
+        e, z, h = (torch.from_numpy(x).to(device) for x in make())
+        for impl in ("conv", "blocked"):
+            kw = dict(vad_inputs.GATES, trailing_impl=impl)
+            state = vad_ops.initial_vad_state(device=device)
+            require(not vad_parity((e, z, h, state), kw, err),
+                    f"K4 equals plain on {tie}, {impl}")
+            first = vad_ops.streaming_vad(e[:4], z[:4], h[:4], state, **kw)[2]
+            require(not vad_parity((e[:4], z[:4], h[:4], state), kw, err)
+                    and not vad_parity((e[4:], z[4:], h[4:], first), kw, err),
+                    f"K4 equals plain on {tie} split in two, {impl}")
+            cases += 3
+    sync(device)
+    print(f"vad_kernel_runs: K4 equal to its plain version on {cases} calls "
+          f"(rows x frames {list(VAD_KERNEL_SIZES)}, both sums, three masks, "
+          f"two calls each; the ties); max abs difference {err['vad']}")
+
+
 def frame_pipes(device) -> dict:
     """One pipeline per K3 case, keyed by the case."""
     from sspv_tpu_torch import FeatureConfig, FeaturePipeline
@@ -393,9 +463,11 @@ def require_fft_route(label: str) -> None:
             f"{label}: K3 ran its FFT route")
 
 
-def frames_path(pipe, device, sig: np.ndarray, check_seconds: int) -> dict:
+def frames_path(pipe, device, sig: np.ndarray, check_seconds: int,
+                err: dict) -> dict:
     """The offline frames path through ``process_signal_device`` at the
-    pipeline's (400/160) framing, checked against the oracle."""
+    pipeline's (400/160) framing, checked against the oracle; K4 against
+    its plain version on the VAD's input."""
     import torch
 
     import oracle
@@ -404,12 +476,15 @@ def frames_path(pipe, device, sig: np.ndarray, check_seconds: int) -> dict:
     c = pipe.cfg
     sig_t = torch.from_numpy(sig).to(device)
     sync(device)
-    reset_launches()
-    block, _ = pipe.process_signal_device(sig_t)
-    sync(device)
-    launches = dict(LAUNCHES)
+    with recording_vad() as vad_calls:
+        reset_launches()
+        block, _ = pipe.process_signal_device(sig_t)
+        sync(device)
+        launches = dict(LAUNCHES)
     print("frames-path launches: " + json.dumps(launches))
     require(launches["frame_features"] > 0, "K3 launched on the frames path")
+    require(launches["vad"] == 1, "K4 launched once on the frames path")
+    vad_calls_parity(vad_calls, err, "frames path", expected=1)
     require_fft_route("frames path")
     require(launches["view_features"] == 0 and launches["view_pitch"] == 0,
             "no view kernel on the frames path")
@@ -505,6 +580,63 @@ def calls_parity(kernel: str, calls: list, err: dict, label: str,
     require(worst <= NMSE_KERNEL, f"{label} {kernel} nmse {worst}")
 
 
+@contextlib.contextmanager
+def recording_vad():
+    """Record a copy of the inputs and the keywords of every call the
+    pipeline makes to K4's wrapper (``fused_streaming_vad``). Yields the
+    list of calls."""
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+
+    calls = []
+    wrapper = pipeline_mod.fused_streaming_vad
+
+    def rec(energy, zcr, entropy, state, **kw):
+        calls.append(((energy.clone(), zcr.clone(), entropy.clone(),
+                       type(state)(*(t.clone() for t in state))), kw))
+        return wrapper(energy, zcr, entropy, state, **kw)
+
+    pipeline_mod.fused_streaming_vad = rec
+    try:
+        yield calls
+    finally:
+        pipeline_mod.fused_streaming_vad = wrapper
+
+
+def vad_parity(args: tuple, kw: dict, err: dict) -> list:
+    """K4 against the plain version on the same inputs on the card: the
+    outputs that differ (decisions, adaptive decisions, the state's
+    fields; none expected); ``err["vad"]`` keeps the largest absolute
+    difference."""
+    import torch
+
+    from sspv_tpu_torch.ops import vad as vad_ops
+    from sspv_tpu_torch.ops.vad_kernels import fused_streaming_vad
+
+    got = fused_streaming_vad(*args, **kw)
+    want = vad_ops.streaming_vad(*args, **kw)
+    names = ("vad", "vad_adaptive") + vad_ops.VadState._fields
+    bad = []
+    for name, g, w in zip(names, (*got[:2], *got[2]), (*want[:2], *want[2])):
+        if g.numel():
+            err["vad"] = max(err["vad"], float(
+                (g.double() - w.double()).abs().max()))
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            bad.append(name)
+    return bad
+
+
+def vad_calls_parity(calls: list, err: dict, label: str,
+                     expected: int | None = None) -> None:
+    """K4 against its plain version on every recorded VAD call."""
+    require(len(calls) > 0 and (expected is None or len(calls) == expected),
+            f"{label} called the VAD wrapper {len(calls)} times")
+    shapes = sorted({tuple(args[0].shape) for args, _ in calls})
+    bad = [vad_parity(args, kw, err) for args, kw in calls]
+    print(f"{label} K4 vs plain on {len(calls)} inputs (shapes {shapes}): "
+          f"outputs apart {[b for b in bad if b][:3]}")
+    require(not any(bad), f"{label} K4 equals its plain version: {bad}")
+
+
 def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
                pitch: bool = False, record: str | None = None) -> dict:
     """One ``AudioRuntime`` run over an in-memory int16 source, read as fast
@@ -541,7 +673,7 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     require(rt._samples_dispatch == bool(samples_dispatch), "dispatch mode")
     targets = [] if record is None else [
         (pipeline_mod, PIPELINE_WRAPPERS[record])]
-    with recording(targets) as calls:
+    with recording(targets) as calls, recording_vad() as vad_calls:
         sync(rt.pipeline.device)
         reset_launches()
         t0 = time.perf_counter()
@@ -559,8 +691,10 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     require(rt.last_error is None, f"engine error: {rt.last_error!r}")
     require(not rt.is_running, "engine reached the end of its source")
     require(rt.frames_processed == n, f"engine frames {rt.frames_processed}")
+    require(launches["vad"] == rt.dispatch_count == len(vad_calls),
+            f"engine ({mode}): K4 once per dispatch")
     return {"rt": rt, "launches": launches, "seconds": seconds,
-            "calls": calls}
+            "calls": calls, "vad_calls": vad_calls}
 
 
 def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
@@ -584,6 +718,7 @@ def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
         if kernel == "frame_features":
             require_fft_route("engine frames dispatch")
         calls_parity(kernel, run.pop("calls"), err, "engine")
+        vad_calls_parity(run.pop("vad_calls"), err, f"engine {kernel}")
         rt = run["rt"]
         rows = list(rt.processed_data)
         got = {
@@ -620,6 +755,7 @@ def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
             require(n_saved == len(rows), "save_data frame count")
     run = run_engine(device, sig16[: PITCH_ENGINE_SECONDS * SR], 1,
                      pitch=True)
+    run.pop("vad_calls")
     f0, _ = run["rt"].get_recent_pitch(max_display=10**7)
     voiced = f0[f0 > 0]
     median_f0 = float(np.median(voiced)) if voiced.size else 0.0
@@ -637,8 +773,9 @@ NPZ_DTYPES = {"energies": "float64", "zcrs": "float64", "vads": "int32",
 
 
 def main_path(pipe, device, seconds: int, check_seconds: int,
-              clip_seconds: int) -> dict:
-    """Features + VAD + pitch through the public entry points, checked."""
+              clip_seconds: int, err: dict) -> dict:
+    """Features + VAD + pitch through the public entry points, checked; K4
+    against its plain version on every VAD input the path gave it."""
     import torch
 
     from sspv_tpu_torch.ops import LAUNCHES, pitch_track_signal
@@ -652,16 +789,20 @@ def main_path(pipe, device, seconds: int, check_seconds: int,
     clip = sig[: clip_seconds * SR]
     if device.type == "cuda":
         torch.cuda.synchronize()
-    reset_launches()
-    block, _ = pipe.process_signal_device(rows)
-    f0, conf = pitch_track_signal(rows, block.vad, min_confidence=0.3)
-    clip_out = pipe.process_signal_pitch_auto(clip)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    with recording_vad() as vad_calls:
+        reset_launches()
+        block, _ = pipe.process_signal_device(rows)
+        f0, conf = pitch_track_signal(rows, block.vad, min_confidence=0.3)
+        clip_out = pipe.process_signal_pitch_auto(clip)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
     print("view-path launches: " + json.dumps(launches))
     require(launches["view_features"] > 0 and launches["view_pitch"] > 0,
             "both view kernels launched")
+    require(launches["vad"] == 2, "K4 once per features+VAD call (the hour, "
+            "the clip)")
+    vad_calls_parity(vad_calls, err, "view path", expected=2)
 
     n = rows.shape[0] - 1
     require(block.energy.shape == (n,) and block.mfcc.shape == (n, 13)
@@ -741,6 +882,8 @@ def long_runs(pipe, device, rows, err: dict) -> dict:
         require(feats["view_features"] == d and feats["view_pitch"] == 0
                 and feats["frame_features"] == 0,
                 f"process_long launches K1 once per shard (d={d})")
+        require(feats["vad"] == 1 == pitch["vad"],
+                f"process_long(_pitch): K4 once after the gather (d={d})")
         require(pitch["view_features"] == d == pitch["view_pitch"]
                 and pitch["frame_features"] == 0,
                 f"process_long_pitch launches K1 and K2 once per shard (d={d})")
@@ -841,8 +984,8 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
          [(pitch_mod, "fused_view_pitch")]])
     launches = run["launches"]
     require(launches["view_features"] == 1 and launches["view_pitch"] == 1
-            and launches["frame_features"] == 0,
-            f"{label}: K1 for the features, K2 for the pitch")
+            and launches["frame_features"] == 0 and launches["vad"] == 1,
+            f"{label}: K1 for the features, K2 for the pitch, K4 the VAD")
     calls_parity("view_features", run["calls"][0], err, label)
     calls_parity("view_pitch", run["calls"][1], err, label)
 
@@ -852,7 +995,7 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
         FeaturePipeline(cfg640, device=device), cfg640, clip, label640,
         [[(pipeline_mod, "fused_features")]])
     require(run640["launches"] == {"view_features": 0, "view_pitch": 1,
-                                   "frame_features": 1}
+                                   "frame_features": 1, "vad": 1}
             and run640["routes"]["frame_features_dense"] == 1,
             f"{label640}: K3 (dense route) for the features, K2 for the pitch")
     calls_parity("frame_features", run640["calls"][0], err, label640)
@@ -937,7 +1080,8 @@ def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             with recording([(pipeline_mod, "fused_features")]) as k3_calls, \
                     recording([(pipeline_mod, "fused_view_features")]) as k1_calls, \
                     recording([(mesh_mod, "fused_view_pitch"),
-                               (pitch_mod, "fused_view_pitch")]) as k2_calls:
+                               (pitch_mod, "fused_view_pitch")]) as k2_calls, \
+                    recording_vad() as vad_calls:
                 sync(device)
                 reset_launches()
                 t0 = time.perf_counter()
@@ -959,6 +1103,9 @@ def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             require(all("error" not in s for s in summaries), "corpus errors")
             require(launches["frame_features"] == n_batches,
                     f"{label}: one K3 launch per batch")
+            require(launches["vad"] == n_batches + 1,
+                    f"{label}: one K4 launch per batch (all its rows) and "
+                    "one for the oversized file")
             require_fft_route(label)
             require(launches["view_features"] == 1,
                     f"{label}: the oversized file took the view path")
@@ -967,6 +1114,7 @@ def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                         f"{label}: one K2 launch per batch and file")
             calls_parity("frame_features", k3_calls, err, label)
             calls_parity("view_features", k1_calls, err, label)
+            vad_calls_parity(vad_calls, err, label, expected=n_batches + 1)
             if want_pitch:
                 calls_parity("view_pitch", k2_calls, err, label)
             check_corpus(pipe, files, summaries, want_pitch, _decode)
@@ -1085,7 +1233,8 @@ def batch_timings(device, sig: np.ndarray, card: str) -> dict:
     """Median device ms of ``process_batch_masked`` on one batch of the
     largest bucket (``CORPUS_BATCH`` rows of 2,048 s cut from ``sig``,
     int16 on the card), and of its parts: the one K3 launch on the batch's
-    frames and the per-row VAD loop."""
+    frames and the one VAD call over the batch's rows (K4, and its plain
+    version beside it)."""
     import torch
 
     from sspv_tpu_torch import FeaturePipeline
@@ -1106,23 +1255,33 @@ def batch_timings(device, sig: np.ndarray, card: str) -> dict:
     f = frames.shape[0] // CORPUS_BATCH
     feats = {k: v.reshape((CORPUS_BATCH, f) + v.shape[1:])
              for k, v in pipe._features(frames).items()}
-    true_n = bp._true_n(lengths)
+    from sspv_tpu_torch.ops import LAUNCHES
+    from sspv_tpu_torch.ops import vad as vad_ops
 
-    def vad_loop():
-        for r in range(CORPUS_BATCH):
-            pipe._vad_stage({k: v[r] for k, v in feats.items()},
-                            pipe.initial_state(),
-                            torch.arange(f, device=device) < int(true_n[r]))
+    sync(device)
+    reset_launches()
+    bp.process_batch_masked(batch, lengths)
+    sync(device)
+    require(LAUNCHES["vad"] == 1 and LAUNCHES["frame_features"] == 1,
+            f"a batch of {CORPUS_BATCH} rows: one K3 and one K4 launch "
+            f"({dict(LAUNCHES)})")
+    true_n = torch.as_tensor(bp._true_n(lengths), device=device)
+    valid = torch.arange(f, device=device)[None, :] < true_n[:, None]
+    args = (feats["energy"], feats["zcr"], feats["entropy"],
+            bp.initial_states(CORPUS_BATCH))
 
     runs = {"process_batch_masked": lambda: bp.process_batch_masked(batch,
                                                                     lengths),
             "process_batch_masked_pitch":
                 lambda: bp.process_batch_masked_pitch(batch, lengths),
             "k3_on_batch_frames": lambda: pipe._features(frames),
-            "vad_row_loop": vad_loop}
+            "vad_batched": lambda: pipe._vad_core(*args, valid),
+            "vad_batched_plain": lambda: vad_ops.streaming_vad(
+                *args, valid=valid, **pipe._vad_kwargs())}
     samples = {k: [] for k in runs}
     for a, b in (("process_batch_masked", "process_batch_masked_pitch"),
-                 ("k3_on_batch_frames", "vad_row_loop")):
+                 ("k3_on_batch_frames", "vad_batched"),
+                 ("vad_batched_plain", "vad_batched")):
         for name in (a, b, b, a):
             samples[name] += time_ms(runs[name])
     out = {k: float(np.median(v)) for k, v in samples.items()}
@@ -1573,7 +1732,8 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
         n60 = SERVE_SECONDS * SR
         slices = [pcm[i * n60 : (i + 1) * n60] for i in range(max(SERVE_CLIENTS))]
         wavs = [wav_bytes(s) for s in slices]
-        k1 = {"view_features": 1, "view_pitch": 0, "frame_features": 0}
+        k1 = {"view_features": 1, "view_pitch": 0, "frame_features": 0,
+              "vad": 1}
         k12 = dict(k1, view_pitch=1)
         routes = {"/v1/features": (False, k1), "/v1/vad": (False, k1),
                   "/v1/pitch": (True, k12)}
@@ -1677,7 +1837,8 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                 // c.hop_size, "stream rows equal stream_pitch bit for bit")
         require(launches == direct_launches and launches == {
             "view_features": 0, "view_pitch": 0,
-            "frame_features": len(want)}, "stream: one K3 launch per dispatch")
+            "frame_features": len(want), "vad": len(want)},
+            "stream: one K3 and one K4 launch per dispatch")
         out["stream_audio_s_per_s"] = SERVE_LONG_SECONDS / stream_s
 
         # -- concurrent clients, /v1/features and /v1/pitch mixed -----------
@@ -1716,7 +1877,8 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                   f" launches {json.dumps(launches)}")
             require(same, f"{clients} clients: responses equal the serial ones")
             require(launches == {"view_features": len(paths),
-                                 "view_pitch": n_pitch, "frame_features": 0},
+                                 "view_pitch": n_pitch, "frame_features": 0,
+                                 "vad": len(paths)},
                     f"{clients} clients: the launch counts add up")
     finally:
         Config.TPU_DEVICE_RESAMPLE = saved_resample
@@ -1851,6 +2013,8 @@ def main_runs(device, sig: np.ndarray, engine: dict, card: str) -> dict:
     require(launches["view_features"] == rt.dispatch_count > 0
             and launches["view_pitch"] == launches["frame_features"] == 0,
             "main: one K1 launch per engine dispatch")
+    require(launches["vad"] == rt.dispatch_count,
+            "main: one K4 launch per engine dispatch")
     require(problems == [] and session.num_frames == n, "main: save_data")
     ref = list(engine["view_features"]["rt"].processed_data)
     same = all(np.array_equal(getattr(session, k), np.array(
@@ -2343,9 +2507,9 @@ def tool_seconds(name: str, t0: float) -> None:
 
 
 def time_blocked_vad_runs(device, pipe, main: dict) -> None:
-    """Both trailing-sum forms on the hour: one K1 launch per call, at
-    most 3 decisions apart (expected 0), each equal to the engine oracle
-    on the first 600 s."""
+    """Both trailing-sum forms on the hour, each through K4's flag for it:
+    one K1 and one K4 launch per call, at most 3 decisions apart (expected
+    0), each equal to the engine oracle on the first 600 s."""
     from sspv_tpu_torch.tools import time_blocked_vad as tbv
 
     sys.path.insert(0, str(ROOT / "tests"))
@@ -2364,8 +2528,12 @@ def time_blocked_vad_runs(device, pipe, main: dict) -> None:
     mismatches = lines[-1]["decision_mismatches"]
     print(f"time_blocked_vad: {mismatches} decision mismatches, launches "
           + json.dumps(launches))
-    require(launches["view_features"] == len(tbv.IMPLS) * (1 + tbv.REPS),
-            "time_blocked_vad: one K1 launch per call")
+    require(launches["view_features"] == len(tbv.IMPLS) * (1 + tbv.REPS)
+            == launches["vad"], "time_blocked_vad: one K1 and one K4 launch "
+            "per call")
+    require([x["vad_routes"] for x in lines[:-1]]
+            == [{"vad_direct": 1}, {"vad_blocked": 1}],
+            "time_blocked_vad: each form through its K4 flag")
     require(mismatches <= tbv.MAX_MISMATCHES,
             f"time_blocked_vad: {mismatches} decision mismatches")
     for impl, vad in vads.items():
@@ -2374,8 +2542,9 @@ def time_blocked_vad_runs(device, pipe, main: dict) -> None:
 
 
 def vad_microbench_runs(device) -> None:
-    """The VAD's pieces at the block and the hour's full-length shape:
-    the float64 sums within 1e-12 of the direct sum."""
+    """The VAD's pieces and K4 at the block and the hour's full-length
+    shape: the float64 sums within 1e-12 of the direct sum, K4 equal to
+    the plain version."""
     from sspv_tpu_torch.tools import vad_microbench as vmb
 
     for frames in (vmb.BLOCK_FRAMES, vmb.HOUR_FRAMES):
@@ -2386,6 +2555,12 @@ def vad_microbench_runs(device) -> None:
                 require(line["max_rel_vs_direct"] <= MAX_REL_SUMS,
                         f"vad_microbench {line['variant']} at {frames} "
                         f"frames: {line['max_rel_vs_direct']}")
+            if line["variant"].startswith("kernel"):
+                require(line["equal_to_plain"]
+                        and line["launches"] == {"vad": vmb.REPS},
+                        f"vad_microbench {line['variant']} at {frames} "
+                        f"frames: K4 equal to plain, one launch per call "
+                        f"({line['launches']})")
 
 
 def resample_probe_runs(device) -> None:
@@ -2426,8 +2601,9 @@ def ablate_runs(device, main: dict) -> None:
 def roofline_runs(device, seconds: int, sig: np.ndarray,
                   bounds: dict | None) -> None:
     """The decomposition at ``seconds`` on ``sig``: K1 on feat_only, K2 on
-    pitch_kernel_only, their analytic bounds at the frame count (those of
-    ``kernel_bounds``, ``bounds``, where given)."""
+    pitch_kernel_only, K4 on vad_only, their analytic bounds at the frame
+    count of their call (those of ``kernel_bounds``, ``bounds``, where
+    given)."""
     from sspv_tpu_torch.tools import roofline
 
     sync(device)
@@ -2442,7 +2618,8 @@ def roofline_runs(device, seconds: int, sig: np.ndarray,
                     f"{kernel} launch per call, nothing else "
                     f"({line['launches']})")
             a = line["analytic"]
-            require(a["frames"] == n and (
+            want_frames = -(-n // 256) * 256 if kernel == "vad" else n
+            require(a["frames"] == want_frames and (
                 bounds is None or ((a["bound_ms"], a["bound_by"]),
                                    a["design_bound_ms"]) == bounds[kernel]),
                     f"roofline {line['program']}: the bounds of "
@@ -2556,7 +2733,21 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
         return torch.fft.irfft(torch.fft.rfft(view_frames, n=1024).abs() ** 2,
                                n=1024)
 
+    # K4 on the main path's own call: the hour's features padded to a
+    # multiple of history_len under their mask; torch.cummax of the hour's
+    # seeds beside it, a yardstick the port never calls
+    from sspv_tpu_torch.ops import vad as vad_ops
+    from sspv_tpu_torch.ops.vad_kernels import fused_streaming_vad
+
+    with recording_vad() as vad_calls:
+        pipe.process_signal_device(rows)
+    (vad_args, vad_kw), = vad_calls
+    seeds = vad_ops._seeds(block.vad > 0)
+
     runs = {
+        "vad": lambda: fused_streaming_vad(*vad_args, **vad_kw),
+        "vad_plain": lambda: vad_ops.streaming_vad(*vad_args, **vad_kw),
+        "vad_cummax_library": lambda: torch.cummax(seeds, 0),
         "view_features": lambda: vk.fused_view_features(rows, **feat),
         "view_features_plain": lambda: vk.view_features_plain(rows, **feat),
         "view_pitch": lambda: vk.fused_view_pitch(rows, **pk),
@@ -2580,6 +2771,7 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
     for a, b in (("view_features_plain", "view_features"),
                  ("view_pitch_plain", "view_pitch"),
                  ("frame_features_plain", "frame_features"),
+                 ("vad_plain", "vad"), ("vad_cummax_library", "vad"),
                  ("view_features_fft_stage_library", "view_features"),
                  ("frame_features_fft_stage_library", "frame_features"),
                  ("view_pitch_fft_stage_library", "view_pitch"),
@@ -2610,9 +2802,13 @@ def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     from sspv_tpu_torch.tools.roofline import kernel_bound
 
     out = {}
-    for name, cfg, n in (("view_features", pipe.cfg, rows.shape[0] - 1),
-                         ("view_pitch", pipe.cfg, rows.shape[0] - 1),
-                         ("frame_features", pipe400.cfg, frames.shape[0])):
+    n = rows.shape[0] - 1
+    h = pipe.cfg.history_len
+    for name, cfg, n in (("view_features", pipe.cfg, n),
+                         ("view_pitch", pipe.cfg, n),
+                         ("frame_features", pipe400.cfg, frames.shape[0]),
+                         # one call over the hour's padded features
+                         ("vad", pipe.cfg, -(-n // h) * h)):
         b = kernel_bound(name, cfg, n)
         out[name] = ((b["bound_ms"], b["bound_by"]), b["design_bound_ms"])
     return out
@@ -2646,7 +2842,7 @@ def main() -> int:
 
     pipe = FeaturePipeline(device=device)
     err = {"view_features": 0.0, "view_pitch": 0.0, "frame_features": 0.0,
-           "long_kernel_feats": 0.0, "long_kernel_pitch": 0.0}
+           "long_kernel_feats": 0.0, "long_kernel_pitch": 0.0, "vad": 0.0}
     compare_kernels(pipe, random_rows(device, KERNEL_SIZES), err)
     check_zero_frames(pipe, device)
     for i, (case, fpipe) in enumerate(frame_pipes(device).items()):
@@ -2654,12 +2850,15 @@ def main() -> int:
                              random_frames(device, case[0], seed=i), err,
                              "frame=%d %s entropy_n_fft=%d n_fft=%d" % case[:4],
                              route=case[4])
+    vad_kernel_runs(device, err)
 
-    main = main_path(pipe, device, MAIN_SECONDS, CHECK_SECONDS, CLIP_SECONDS)
+    main = main_path(pipe, device, MAIN_SECONDS, CHECK_SECONDS, CLIP_SECONDS,
+                     err)
     compare_kernels(pipe, [main["rows"]], err)  # at the main path's shape
     pipe400 = FeaturePipeline(FeatureConfig(frame_size=ASR_FRAME, hop_size=HOP),
                               device=device)
-    frames_run = frames_path(pipe400, device, main["signal"], CHECK_SECONDS)
+    frames_run = frames_path(pipe400, device, main["signal"], CHECK_SECONDS,
+                             err)
     compare_frame_kernel(pipe400._frame_consts, [frames_run["frames"]], err,
                          "frames path")
     engine = engine_runs(device, main["signal"], err)
@@ -2699,7 +2898,7 @@ def main() -> int:
                            "sspv_tpu/ops/pallas_kernels.py:43", frames_run),
     }
     # the mesh wrappers at the one-card mesh; their bounds and FFT-stage
-    # yardsticks are K1's and K2's at the same shape
+    # yardsticks are K1's and K2's at the same shape (K4's entry follows)
     d1 = long_ms[LONG_SHARDS[0]]
     ms.update((k, d1[k]) for k in d1)
     for name, kernel, line in (("long_kernel_feats", "view_features", 304),
@@ -2719,6 +2918,17 @@ def main() -> int:
          "fft_stage_library_ms": ms.get(name + "_fft_stage_library")}
         for name, (src, rep, path) in sources.items()
     ]
+    # K4 takes the place of XLA's fusion of the JAX package's jitted
+    # streaming_vad, which has no pallas_call; no single PyTorch call
+    # computes it, and torch.cummax of the same seeds (its largest piece
+    # in the plain version) stands beside it as a yardstick
+    kernels.append({
+        "name": "vad", "route": "cuda", "source": "sspv_tpu_torch/csrc/vad.cu",
+        "replaces": "sspv_tpu/ops/vad.py:401", "pallas": False,
+        "launches": main["launches"]["vad"], "max_abs_err": err["vad"],
+        "ms": ms["vad"], "plain_ms": ms["vad_plain"],
+        "bound_ms": bounds["vad"][0][0], "bound_by": bounds["vad"][0][1],
+        "library_ms": None, "cummax_library_ms": ms["vad_cummax_library"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

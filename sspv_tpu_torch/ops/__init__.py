@@ -1,6 +1,6 @@
-"""The port's compute layer: PyTorch on the device, three hand-written CUDA
+"""The port's compute layer: PyTorch on the device, four hand-written CUDA
 kernels (``view_kernels`` on the signal-view path, ``frame_kernels`` on the
-frames path), and the function-for-function L1 ops (windows, framing, time
+frames path, ``vad_kernels`` for the composite VAD after either), and the function-for-function L1 ops (windows, framing, time
 and frequency features, VAD masks, pitch, resampling) that reach no kernel
 in the JAX package either.
 
@@ -29,6 +29,7 @@ from .vad import (
 )
 from .view_kernels import LAUNCHES, fused_view_features, fused_view_pitch
 from .frame_kernels import ROUTES, fused_features
+from .vad_kernels import fused_streaming_vad
 from .preprocessing import (
     frame_signal,
     framing,
@@ -91,6 +92,7 @@ __all__ = [
     "fused_view_features",
     "fused_view_pitch",
     "fused_features",
+    "fused_streaming_vad",
     "frame_signal",
     "framing",
     "num_frames_for",

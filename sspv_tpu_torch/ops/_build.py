@@ -39,10 +39,13 @@ NVCC_FLAGS = (
 # Kernel launches per wrapper since the last reset: each wrapper adds one
 # where it launches its kernel and nowhere else, so a caller can show that
 # a run went through the kernels.
-LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0}
+LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0,
+            "vad": 0}
 # Launches of K3 by route ("fft": the shared-memory FFT kernel, "dense": the
-# DFT-pair kernel); they add up to LAUNCHES["frame_features"].
-ROUTES = {"frame_features_fft": 0, "frame_features_dense": 0}
+# DFT-pair kernel); they add up to LAUNCHES["frame_features"]. K4's window
+# sums ("direct" or "blocked") add up to LAUNCHES["vad"].
+ROUTES = {"frame_features_fft": 0, "frame_features_dense": 0,
+          "vad_direct": 0, "vad_blocked": 0}
 # Guards both dicts: threads of one server launch the kernels concurrently,
 # and a bare ``+= 1`` is a read-modify-write that can lose a count.
 _count_lock = threading.Lock()
@@ -114,6 +117,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, i, i, p, p, i, p, p, i, p, p, i, f, i, p, p, p, p, p,
     ]
     lib.sspv_frame_features_fft.restype = i
+    d = ctypes.c_double
+    lib.sspv_streaming_vad.argtypes = [
+        p, p, p, p, p, p, p, p, p, i, i, i, d, d, d, d, d, d, d, d, i, i,
+        p, p, p, p, p, p, p, p,
+    ]
+    lib.sspv_streaming_vad.restype = i
     lib.sspv_error_string.argtypes = [i]
     lib.sspv_error_string.restype = ctypes.c_char_p
     return lib

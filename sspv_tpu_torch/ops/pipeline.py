@@ -12,12 +12,14 @@ per-frame features:
   ``stream``, the packed block programs): ``fused_features`` (kernel K3 on
   CUDA) on materialized ``(F, frame_size)`` frames.
 
-After either, ``streaming_vad`` (tensor ops) runs the composite VAD:
-exact-length up to ``SCAN_BLOCK_FRAMES`` frames, else once over the gate
-vectors padded to a multiple of ``history_len`` under a ``valid`` mask,
-exactly the branches of the JAX package. ``pitch_track_signal`` (kernel K2
-on the rows view, or the Wiener-Khinchin matmuls on frames) gives the F0
-track, gated on the VAD.
+After either, ``fused_streaming_vad`` (kernel K4 on CUDA, the plain
+``vad.streaming_vad`` on the CPU) runs the composite VAD: exact-length up
+to ``SCAN_BLOCK_FRAMES`` frames, else once over the gate vectors padded to
+a multiple of ``history_len`` under a ``valid`` mask, exactly the branches
+of the JAX package (where ``streaming_vad`` is no Pallas kernel but XLA's
+fusion inside the jitted program; K4 takes its place).
+``pitch_track_signal`` (kernel K2 on the rows view, or the Wiener-Khinchin
+matmuls on frames) gives the F0 track, gated on the VAD.
 
 On a CPU device the kernels' plain PyTorch versions run instead. K1 takes
 any hop, but computes its spectrum by an FFT: it needs an ``n_fft`` that is
@@ -41,6 +43,7 @@ from . import vad as vad_ops
 from .frame_kernels import fused_features
 from .pitch import _lag_band, acf_bases, pitch_track_gated, pitch_track_signal_gated
 from .preprocessing import frame_signal, stream_frames
+from .vad_kernels import fused_streaming_vad
 from .view_kernels import fused_view_features
 from .windows import get_window
 from ..utils.framing import frame_i16_to_f32
@@ -401,10 +404,10 @@ class FeaturePipeline:
     def _device_stream_frames(self, signal: torch.Tensor) -> torch.Tensor:
         return stream_frames(signal, self.cfg.frame_size, self.cfg.hop_size)
 
-    def _vad_core(self, energy, zcr, entropy, state, valid):
+    def _vad_kwargs(self) -> dict:
+        """The configuration's keywords of ``streaming_vad``."""
         c = self.cfg
-        return vad_ops.streaming_vad(
-            energy, zcr, entropy, state,
+        return dict(
             energy_threshold=c.energy_threshold,
             zcr_threshold=c.zcr_threshold,
             entropy_voice_max=c.entropy_voice_max,
@@ -415,9 +418,14 @@ class FeaturePipeline:
             hangover_on=c.hangover_on,
             release_off=c.release_off,
             history_len=c.history_len,
-            valid=valid,
             trailing_impl=c.vad_trailing_impl,
         )
+
+    def _vad_core(self, energy, zcr, entropy, state, valid):
+        """The composite VAD (K4 on CUDA) of ``(f,)`` or ``(B, f)``
+        features with the matching state and mask."""
+        return fused_streaming_vad(energy, zcr, entropy, state, valid=valid,
+                                   **self._vad_kwargs())
 
     def _vad_stage(self, feats: dict, state, valid):
         """Exact-length composite VAD over computed features."""

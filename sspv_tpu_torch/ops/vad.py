@@ -21,8 +21,13 @@ engine.py:253-288):
    last initially-voiced frame: a cummax of voiced indices gives it for all
    frames at once.
 
-Plain tensor ops on the device of the inputs; no step of it is a kernel in
-the JAX package either.
+Here it is plain tensor ops on the device of the inputs, along the last
+axis: ``(f,)`` or ``(B, f)`` rows with a state per row, as the JAX
+package ``vmap``s it. No step of it is a Pallas kernel in the JAX package
+(XLA fuses it inside the jitted programs); on the card the pipeline runs
+it as one hand-written kernel, K4 (``csrc/vad.cu`` through
+``vad_kernels.fused_streaming_vad``), and this module is that kernel's
+plain version: the CPU path, and the yardstick it is held to.
 
 The thresholds are those of the reference engine, whose history goes
 through Python floats and ``np.mean``: the window sums, the means and the
@@ -261,41 +266,51 @@ def _trailing_means_pair(v1, v2, buf1, buf2, count, history_len: int,
                          impl: str = "conv"):
     """Per-frame float64 means of the previous <= history_len values of two
     float32 feature streams sharing one count (frames with an empty history
-    get the current value itself). Returns
+    get the current value itself), along the last axis: ``v1``/``v2`` are
+    ``(..., f)``, the buffers ``(..., H)`` and ``count`` ``(...)``. Returns
     ``((means1, means2), (new_buf1, new_buf2))``, the buffers in float32."""
-    f = v1.shape[0]
-    ext = torch.cat([torch.stack([buf1, buf2]), torch.stack([v1, v2])], dim=1)
-    ext64 = ext.to(torch.float64)  # (2, H + f)
+    f = v1.shape[-1]
+    ext = torch.cat([torch.stack([buf1, buf2]), torch.stack([v1, v2])], dim=-1)
+    ext64 = ext.to(torch.float64)  # (2, ..., H + f)
     sums = _window_sums(ext64, f, history_len, impl)
     idx = torch.arange(f, dtype=torch.int32, device=v1.device)
-    counts = (count + idx).clamp_max(history_len)
+    counts = (count[..., None] + idx).clamp_max(history_len)
     means = torch.where(counts > 0,
                         sums / counts.clamp_min(1).to(torch.float64),
-                        ext64[:, history_len:])
-    new_bufs = ext[:, ext.shape[1] - history_len:]
+                        ext64[..., history_len:])
+    new_bufs = ext[..., ext.shape[-1] - history_len:]
     return (means[0], means[1]), (new_bufs[0], new_bufs[1])
 
 
 def _cummax(seeds: torch.Tensor) -> torch.Tensor:
-    """Inclusive cummax of a 1-D int32 vector. One ``torch.cummax`` serves
-    both the flat and the blocked form of the JAX package: max is exact, so
-    every evaluation order gives the same result."""
-    return torch.cummax(seeds, dim=0).values
+    """Inclusive cummax of int32 seeds along the last axis. One
+    ``torch.cummax`` serves both the flat and the blocked form of the JAX
+    package: max is exact, so every evaluation order gives the same
+    result."""
+    return torch.cummax(seeds, dim=-1).values
+
+
+def _seeds(vad_initial: torch.Tensor) -> torch.Tensor:
+    """Each frame's index where it is initially voiced, else ``-2**30``."""
+    idx = torch.arange(vad_initial.shape[-1], dtype=torch.int32,
+                       device=vad_initial.device)
+    return torch.where(vad_initial, idx, torch.full_like(idx, _NEG_LARGE))
 
 
 def hangover_smooth(vad_initial, last_voiced, hangover_on: int,
                     release_off: int):
-    """Hangover/release smoothing: with ``d`` the distance to the last
-    initially-voiced frame, the output is 1 iff ``d < ON + max(OFF, 1)``.
-    Returns ``(vad int32, new_last_voiced)``."""
-    f = vad_initial.shape[0]
+    """Hangover/release smoothing along the last axis: with ``d`` the
+    distance to the last initially-voiced frame, the output is 1 iff
+    ``d < ON + max(OFF, 1)``. ``last_voiced`` has the shape of
+    ``vad_initial`` without its last axis. Returns ``(vad int32,
+    new_last_voiced)``."""
+    f = vad_initial.shape[-1]
     on = max(int(hangover_on), 0)
     off = max(int(release_off), 0)
     idx = torch.arange(f, dtype=torch.int32, device=vad_initial.device)
-    seeds = torch.where(vad_initial, idx, torch.full_like(idx, _NEG_LARGE))
-    last = torch.maximum(_cummax(seeds), last_voiced)
+    last = torch.maximum(_cummax(_seeds(vad_initial)), last_voiced[..., None])
     vad = ((idx - last) < on + max(off, 1)).to(torch.int32)
-    new_last_voiced = last[-1] - f if f else last_voiced
+    new_last_voiced = last[..., -1] - f if f else last_voiced
     return vad, new_last_voiced
 
 
@@ -349,11 +364,15 @@ def streaming_vad(
 ):
     """The engine's per-frame composite VAD over a block of frames.
 
-    ``valid`` (optional bool mask) marks padded tail frames: they produce
-    outputs but do not advance the state. Returns
-    ``(vad int32, vad_adaptive int32, new_state)``.
+    ``energy``, ``zcr`` and ``entropy`` are ``(f,)``, or ``(B, f)`` for B
+    rows, each with its own state (``state`` with a leading ``(B,)`` axis,
+    ``initial_states``/``stack_states``) and its own row of ``valid``:
+    each row gives the bits of a 1-D call on that row, as the JAX
+    package's ``vmap`` does. ``valid`` (optional bool mask) marks padded
+    tail frames: they produce outputs but do not advance the state.
+    Returns ``(vad int32, vad_adaptive int32, new_state)``.
     """
-    f = energy.shape[0]
+    f = energy.shape[-1]
     if valid is not None:
         # masked frames must not pollute the history sums or the cummax
         e_in = torch.where(valid, energy, torch.zeros_like(energy))
@@ -391,21 +410,18 @@ def streaming_vad(
     )
 
     if valid is not None:
-        n_valid = valid.sum(dtype=torch.int32)
+        n_valid = valid.sum(dim=-1, dtype=torch.int32)
         # Only valid frames enter the history: the padding is a contiguous
-        # tail of zeros, so the window ending before it is the new buffer.
-        ext_len = history_len + f
-        start = ext_len - history_len - (f - n_valid)
-        pick = start + torch.arange(history_len, device=e.device)
-        new_e_buf = torch.cat([state.energy_buf, e_in])[pick]
-        new_z_buf = torch.cat([state.zcr_buf, z_in])[pick]
+        # tail of zeros, so the window ending before it (ext[n_valid :
+        # n_valid + H] of ext = [buffer, masked inputs]) is the new buffer.
+        pick = n_valid[..., None] + torch.arange(history_len, device=e.device)
+        new_e_buf = torch.cat([state.energy_buf, e_in], -1).gather(-1, pick)
+        new_z_buf = torch.cat([state.zcr_buf, z_in], -1).gather(-1, pick)
         new_count = (state.count + n_valid).clamp_max(history_len)
         # last_voiced relative to the next block's start, index n_valid
-        idx = torch.arange(f, dtype=torch.int32, device=e.device)
-        seeds = torch.where(vad_initial, idx, torch.full_like(idx, _NEG_LARGE))
         last_any = state.last_voiced
         if f:
-            last_any = torch.maximum(seeds.max(), last_any)
+            last_any = torch.maximum(_seeds(vad_initial).amax(-1), last_any)
         new_last = last_any - n_valid
     else:
         new_count = (state.count + f).clamp_max(history_len)

@@ -10,8 +10,9 @@ device with ``.to``):
   ``process_batch_masked_pitch`` split the rows of a ``(B, L)`` batch over
   the mesh's "data" axis; each group of rows runs on the first device of its
   "data" row. A device frames its rows on the device (int16 casts there),
-  runs ONE K3 launch over all of its rows' frames, then each row's VAD with
-  its own state (a Python loop over the rows). The pitch program runs one K2
+  runs ONE K3 launch over all of its rows' frames, then ONE VAD call over
+  all of its rows, each with its own state and mask (K4, batched over the
+  rows as the JAX package ``vmap``s the VAD). The pitch program runs one K2
   launch over the rows views of all the device's rows.
 - ``process_long`` and ``process_long_pitch`` split one signal's frames over
   every device of the flattened mesh. On the shard route
@@ -214,9 +215,10 @@ class BatchPipeline:
 
     def _rows(self, signals, lengths, states, band):
         """The batch programs' body: rows over "data", one K3 launch per
-        device over its rows' frames, each row's VAD (exact length,
-        ``_masked_row`` of the JAX package), and with ``band = (fmin,
-        fmax)`` the ungated pitch of every row. Returns ``(block, states,
+        device over its rows' frames, one VAD call per device over its rows
+        (exact length, each row with its own state and mask: the
+        ``vmap``ped ``_masked_row`` of the JAX package), and with
+        ``band = (fmin, fmax)`` the ungated pitch of every row. Returns ``(block, states,
         (f0, conf) or None)`` on the mesh's first device."""
         sig = _as_transfer_dtype(signals)
         if sig.ndim != 2:
@@ -230,38 +232,39 @@ class BatchPipeline:
         f = 1 + (length - c.frame_size) // c.hop_size \
             if length >= c.frame_size else 0
         true_n = None if lengths is None else self._true_n(lengths)
-        row_states = vad_ops.unstack_states(
-            self.initial_states(b) if states is None else states
-        )
+        all_states = self.initial_states(b) if states is None else states
         dev0, per = self.pipe.device, b // dp
         blocks, new_states, pitch = [], [], []
         for i in range(dp):
             pipe = self._pipes[self.mesh.devices[i, 0]]
-            rows = range(i * per, (i + 1) * per)
-            x = pipe._upload(sig[rows.start : rows.stop]).to(torch.float32)
+            rows = slice(i * per, (i + 1) * per)
+            x = pipe._upload(sig[rows]).to(torch.float32)
             frames = (x.unfold(1, c.frame_size, c.hop_size)
                       .reshape(-1, c.frame_size)) if f else \
                 x.new_zeros((0, c.frame_size))
             feats = pipe._features(frames)  # one K3 launch for all rows
             feats = {k: v.reshape((per, f) + v.shape[1:])
                      for k, v in feats.items()}
-            for r, row in enumerate(rows):
-                valid = None if true_n is None else (
-                    torch.arange(f, device=pipe.device) < int(true_n[row]))
-                block, st = pipe._vad_stage(
-                    {k: v[r] for k, v in feats.items()},
-                    _on(row_states[row], pipe.device), valid,
-                )
-                blocks.append(FeatureBlock(*(t.to(dev0) for t in block)))
-                new_states.append(_on(st, dev0))
+            valid = None
+            if true_n is not None:
+                n = torch.as_tensor(true_n[rows], device=pipe.device)
+                valid = (torch.arange(f, device=pipe.device)[None, :]
+                         < n[:, None])
+            # one VAD call over all rows (K4 on CUDA), each with its state
+            block, st = pipe._vad_stage(
+                feats, _on(vad_ops.VadState(*(t[rows] for t in all_states)),
+                           pipe.device), valid)
+            blocks.append(FeatureBlock(*(t.to(dev0) for t in block)))
+            new_states.append(_on(st, dev0))
             if band is not None:
                 pitch.append(tuple(t.to(dev0) for t in
                                    self._rows_pitch(pipe, x, frames, f, *band)))
-        block = FeatureBlock(*(torch.stack(ts) for ts in zip(*blocks)))
+        block = FeatureBlock(*(torch.cat(ts) for ts in zip(*blocks)))
+        new = vad_ops.VadState(*(torch.cat(ts) for ts in zip(*new_states)))
         out_pitch = None
         if band is not None:
             out_pitch = tuple(torch.cat(ts) for ts in zip(*pitch))
-        return block, vad_ops.stack_states(new_states), out_pitch
+        return block, new, out_pitch
 
     @staticmethod
     def _rows_pitch(pipe, x, frames, f: int, fmin: float, fmax: float):

@@ -19,7 +19,8 @@ One JSON line per program:
   feat_r3_scan        K1 + VAD per 32,768-frame block, the VadState carried,
                       as the engine dispatches
   feat_only           K1 alone
-  vad_only            the full-length VAD over K1's features
+  vad_only            the full-length VAD over K1's features (K4 on the
+                      card: three launches)
   rows_only           one full read of the rows view: the input side's floor
   pitch_shipped       pitch_track_signal on the rows view (K2 + the gate)
   pitch_kernel_only   K2 alone (fused_view_pitch), ungated
@@ -28,9 +29,10 @@ One JSON line per program:
   pitch_r3_scan       K2 per 32,768-frame block
 
 Each line carries the kernel launches of its timed calls. The kernel rows
-(``feat_only``, ``pitch_kernel_only``) carry ``analytic``: the operations
-and bytes of the kernel's function and of its design, and the least time
-each takes on an H100 SXM (``kernel_bound``); the other rows carry null.
+(``feat_only``, ``pitch_kernel_only``, ``vad_only``) carry ``analytic``:
+the operations and bytes of the kernel's function and of its design, and
+the least time each takes on an H100 SXM (``kernel_bound``); the other
+rows carry null.
 
 ``--trace`` records the target program under ``torch.profiler`` (CPU and
 CUDA activity) for 3 queued calls after a warm one (the profiler's
@@ -64,8 +66,10 @@ from ..utils.device import card_line, resolve_device, synchronize
 from .length_probe import make_signal, pipelined
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
-# its full 700 W): fp32 operations outside the tensor cores, device memory.
+# its full 700 W): fp32 and fp64 operations outside the tensor cores (a
+# multiply-add counts 2), device memory.
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 33.5e12
 HBM_BYTES_PER_S = 3.35e12
 # Shared memory: 128 bytes per clock and SM, 132 SMs, 1.98 GHz boost clock.
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
@@ -74,7 +78,8 @@ PROGRAMS = ("feat_shipped", "feat_shipped_flat", "feat_r3_scan", "feat_only",
             "vad_only", "rows_only", "pitch_shipped", "pitch_kernel_only",
             "pitch_shipped_flat", "pitch_gate_only", "pitch_r3_scan")
 R3 = ("feat_r3_scan", "pitch_r3_scan")
-ANALYTIC = {"feat_only": "view_features", "pitch_kernel_only": "view_pitch"}
+ANALYTIC = {"feat_only": "view_features", "pitch_kernel_only": "view_pitch",
+            "vad_only": "vad"}
 TRACE_TARGETS = {"feat": "feat_shipped", "vad": "vad_only",
                  "pitch": "pitch_shipped"}
 BLOCK_FRAMES = 32768
@@ -90,9 +95,10 @@ MIN_CONFIDENCE = 0.3
 # -- bounds from shapes ----------------------------------------------------
 
 
-def bound(ops: float, nbytes: float) -> tuple[float, str]:
+def bound(ops: float, nbytes: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """The least ms of the work on the card and what bounds it."""
-    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -175,18 +181,39 @@ def _pitch_work(cfg, frames: int) -> tuple:
             frames * (2 * rfft_ops(n_acf) + rest(n_acf)), nbytes, smem)
 
 
+def _vad_work(cfg, frames: int) -> tuple:
+    """K4's ``(least fp64 ops, design fp64 ops, bytes, shared-memory
+    bytes)`` on one row of ``frames`` frames."""
+    h = cfg.history_len
+    # per frame and stream: a running window sum (an add and a subtract),
+    # the mean, the blend (two multiplies and an add) and the clamp; the
+    # margin once
+    least = frames * (2 * 6 + 1)
+    # the design sums each window whole: H adds a frame and stream
+    design = frames * (2 * (h + 4) + 1)
+    # e, z, h in and the two int32 decisions out; the state in and out
+    nbytes = frames * (3 * 4 + 2 * 4) + 2 * (2 * 4 * h + 2 * 4)
+    # each thread reads its two windows from the block's staged values
+    smem = frames * 2 * 4 * h
+    return least, design, nbytes, smem
+
+
 def kernel_bound(kernel: str, cfg, frames: int) -> dict:
     """The bounds of one kernel (``view_features`` K1 and ``view_pitch`` K2
     on the rows view of ``frames`` frames, ``frame_features`` K3 on
-    ``frames`` formed frames) at the configuration ``cfg``, from shapes
-    alone. Both count the bytes the function must move (each input read
-    once, each output written once) and fp32 operations (a multiply-add is
-    2). ``bound_ms`` counts the least operations of the function: the power
+    ``frames`` formed frames, ``vad`` K4 on one row of ``frames`` frames)
+    at the configuration ``cfg``, from shapes alone. Both count the bytes
+    the function must move (each input read once, each output written
+    once) and operations (a multiply-add is 2): fp32 for K1-K3, fp64 for
+    K4. ``bound_ms`` counts the least operations of the function: the power
     spectrum and the ACF by real FFTs, the mel filterbank by its nonzero
-    weights. ``design_bound_ms`` is the ceiling of the kernel's own design:
-    the FFTs at the kernel's transform size (K2's power of two against the
-    least size the ACF needs), or the shared-memory traffic of its stages
-    and tail rows, whichever takes longer."""
+    weights, the VAD's window sums as running sums. ``design_bound_ms`` is
+    the ceiling of the kernel's own design: the FFTs at the kernel's
+    transform size (K2's power of two against the least size the ACF
+    needs), K4's windows summed whole, or the shared-memory traffic of
+    their stages and tail rows (K4's window reads), whichever takes
+    longer."""
+    peak = FP32_OPS_PER_S
     if kernel == "view_features":
         ops, nbytes, smem = _features_work(cfg, frames,
                                            (frames + 1) * cfg.hop_size)
@@ -197,10 +224,13 @@ def kernel_bound(kernel: str, cfg, frames: int) -> dict:
         design_ops = ops
     elif kernel == "view_pitch":
         ops, design_ops, nbytes, smem = _pitch_work(cfg, frames)
+    elif kernel == "vad":
+        ops, design_ops, nbytes, smem = _vad_work(cfg, frames)
+        peak = FP64_OPS_PER_S
     else:
         raise ValueError(f"no kernel {kernel!r}")
-    ms, by = bound(ops, nbytes)
-    design_ms, design_by = bound(design_ops, nbytes)
+    ms, by = bound(ops, nbytes, peak)
+    design_ms, design_by = bound(design_ops, nbytes, peak)
     smem_ms = 1e3 * smem / SMEM_BYTES_PER_S
     if smem_ms > design_ms:
         design_ms, design_by = smem_ms, "shared memory"
@@ -269,6 +299,10 @@ class Programs:
         vad_gate = torch.ones((n,), dtype=torch.int32, device=device)
         self.feats = pipe._features_from_rows(rows)
         self.f0c = fused_view_pitch(rows, **k2)
+        # the frames each kernel row's call gives its kernel: the VAD runs
+        # once over the features padded to a multiple of history_len
+        self.kernel_frames = {"view_features": n, "view_pitch": n,
+                              "vad": -(-n // c.history_len) * c.history_len}
 
         def r3():
             st, blocks = state0, []
@@ -489,7 +523,8 @@ def run(seconds: float, device, signal=None, only=None, skip_r3: bool = False,
         lines.append({
             "program": name, **base, **stats,
             "x_realtime": seconds / (stats["ms_median"] / 1e3),
-            "analytic": (kernel_bound(kernel, progs.pipe.cfg, progs.n)
+            "analytic": (kernel_bound(kernel, progs.pipe.cfg,
+                                      progs.kernel_frames[kernel])
                          if kernel else None)})
     for target in trace_targets:
         fn, probe = progs.programs[TRACE_TARGETS[target]]

@@ -3,13 +3,14 @@
 ``"conv"``, and count where the two decide apart over the whole signal.
 
 The port's two trailing-sum forms (``ops/vad.py``): ``"conv"`` is the
-direct sum of each 256-frame window (``unfold`` then ``sum``, no
-convolution), ``"blocked"`` the two-level block cumsums
-(``_blocked_trailing_sums``). Each runs in
+direct sum of each 256-frame window, ``"blocked"`` the suffix of one
+block plus the prefix of the next (the plain version's two-level block
+cumsums, ``_blocked_trailing_sums``). Each runs in
 ``FeaturePipeline.process_signal_device`` on the uploaded ``(n+1, hop)``
-rows view: K1 and one full-length VAD. Timed with ``length_probe``'s
-method (calls queued back to back, one readback, the median CUDA-event
-time per call beside the host clock):
+rows view: K1 and one full-length VAD, which on the card is K4 with the
+form's flag (``vad_routes`` counts the launches of each form). Timed
+with ``length_probe``'s method (calls queued back to back, one readback,
+the median CUDA-event time per call beside the host clock):
 
     python -m sspv_tpu_torch.tools.time_blocked_vad [seconds] [--device cuda]
 
@@ -48,10 +49,15 @@ def run(seconds: float, device, signal=None) -> tuple[list[dict], dict]:
     del sig_np
     synchronize(device)
     lines, vads = [], {}
+    from ..ops import ROUTES
+
     for impl, pipe in pipes.items():
         state0 = pipe.initial_state()
+        before = dict(ROUTES)
         block, _ = pipe.process_signal_device(rows, state0)
         vads[impl] = block.vad.cpu().numpy()
+        routes = {k: v - before[k] for k, v in ROUTES.items()
+                  if k.startswith("vad_") and v != before[k]}
 
         def call():
             return pipe.process_signal_device(rows, state0)[0].vad[-1]
@@ -59,8 +65,8 @@ def run(seconds: float, device, signal=None) -> tuple[list[dict], dict]:
         per, ms = pipelined(call, device, REPS)
         lines.append({"variant": f"full_vad_{impl}", "time_s": round(per, 6),
                       "audio_x_realtime": round(seconds / per, 1),
-                      "event_ms_median": ms, "device": str(device),
-                      "card": card})
+                      "event_ms_median": ms, "vad_routes": routes,
+                      "device": str(device), "card": card})
     mismatches = int(np.sum(vads["conv"] != vads["blocked"]))
     lines.append({"decision_mismatches": mismatches,
                   "frames": int(vads["conv"].size),

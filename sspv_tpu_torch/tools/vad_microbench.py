@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Micro-benchmark of the streaming VAD's building blocks.
 
-The VAD stage is tensor ops (``ops/vad.py``), no kernel of the port's
-own. Its pieces are timed alone, each at two shapes: the original's block
-(F = 32,768 frames, history H = 256) and the hour's full-length call (the
-359,999 frames of 3,600 s at 320/160, which ``_vad_full_length`` pads to
-360,192, a multiple of H):
+The pipeline runs the VAD stage as one kernel, K4 (``csrc/vad.cu``
+through ``ops/vad_kernels.fused_streaming_vad``); its plain version is
+tensor ops (``ops/vad.py``). K4 and the plain version's pieces are timed
+alone, each at two shapes: the original's block (F = 32,768 frames,
+history H = 256) and the hour's full-length call (the 359,999 frames of
+3,600 s at 320/160, which ``_vad_full_length`` pads to 360,192, a multiple
+of H):
 
   direct            the shipped window sums: ``unfold`` then ``sum``, float64
   blocked           ``_blocked_trailing_sums``, two-level block cumsums, float64
@@ -13,17 +15,22 @@ own. Its pieces are timed alone, each at two shapes: the original's block
                     yardstick the port uses nowhere (cuDNN)
   matmul            the ``unfold`` windows times a ones vector, float64
   cummax            ``vad._cummax``, the hangover's running max of indices
-  vad_full_blocked  ``streaming_vad`` as shipped (the pipeline's default)
-  vad_full_direct   ``streaming_vad`` with ``trailing_impl="conv"``
+  vad_full_blocked  the plain ``streaming_vad`` with the pipeline's default
+                    blocked sums
+  vad_full_direct   the plain ``streaming_vad`` with ``trailing_impl="conv"``
+  kernel            K4 (``fused_streaming_vad``) with the blocked sums, as
+                    the pipeline runs it; the plain version off the card
 
     python -m sspv_tpu_torch.tools.vad_microbench [--device cuda]
 
 One JSON line per piece and shape: ``time_us`` is the median CUDA-event
 time of a call among 32 queued back to back (null off the card),
-``host_us`` the host clock per call over the same 32 with one readback;
-the sums carry ``max_rel_vs_direct``. The original's ``reduce_window``
-(``lax.reduce_window``) has no PyTorch counterpart: one ``not_ported``
-line says so.
+``host_us`` the host clock per call over the same 32 with one readback,
+``launches`` the port's kernel launches of those calls; the sums carry
+``max_rel_vs_direct``, the kernel line ``equal_to_plain`` (decisions and
+state against the plain version on the same inputs). The original's
+``reduce_window`` (``lax.reduce_window``) has no PyTorch counterpart: one
+``not_ported`` line says so.
 """
 
 from __future__ import annotations
@@ -120,12 +127,22 @@ def cummax(vadi: torch.Tensor) -> torch.Tensor:
     return vad._cummax(seeds)
 
 
-def vad_full(x: dict, impl: str):
+def vad_full(x: dict, impl: str, kernel: bool = False):
+    """The whole VAD on the inputs: the plain ``streaming_vad``, or with
+    ``kernel`` K4 through its wrapper."""
     from ..ops import vad
+    from ..ops.vad_kernels import fused_streaming_vad
 
     state = vad.initial_vad_state(HISTORY, device=x["e"].device)
-    return vad.streaming_vad(x["e"], x["z"], x["h"], state, valid=x["valid"],
-                             trailing_impl=impl, history_len=HISTORY, **GATES)
+    fn = fused_streaming_vad if kernel else vad.streaming_vad
+    return fn(x["e"], x["z"], x["h"], state, valid=x["valid"],
+              trailing_impl=impl, history_len=HISTORY, **GATES)
+
+
+def same_vad(got, want) -> bool:
+    """Decisions, adaptive decisions and every state field equal."""
+    return all(torch.equal(a, b) for a, b in zip(got[:2], want[:2])) and \
+        all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
 
 
 def bench(frames: int, device, valid_frames: int | None = None,
@@ -141,12 +158,19 @@ def bench(frames: int, device, valid_frames: int | None = None,
     lines = []
 
     def line(name, fn, dtype, extra=None):
+        from ..ops import LAUNCHES
+
         fn()  # warm
+        before = dict(LAUNCHES)
         host_s, ms = pipelined(lambda: fn().reshape(-1)[-1].double(), device,
                                reps)
         lines.append({"variant": name, **base, "dtype": dtype,
                       "time_us": None if ms is None else round(1e3 * ms, 2),
-                      "host_us": round(1e6 * host_s, 2), **(extra or {})})
+                      "host_us": round(1e6 * host_s, 2),
+                      "launches": {k: v - before[k]
+                                   for k, v in LAUNCHES.items()
+                                   if v != before[k]},
+                      **(extra or {})})
 
     ref = window_sums("direct", x["ext"], frames)
     for name in SUMS:
@@ -161,6 +185,10 @@ def bench(frames: int, device, valid_frames: int | None = None,
                         ("vad_full_direct", "conv")):
         line(label, lambda impl=impl: vad_full(x, impl)[0],
              "float64 means, float32 comparisons")
+    same = same_vad(vad_full(x, "blocked", kernel=True),
+                    vad_full(x, "blocked"))
+    line("kernel", lambda: vad_full(x, "blocked", kernel=True)[0],
+         "float64 means, float32 comparisons", {"equal_to_plain": same})
     return lines
 
 

@@ -85,6 +85,13 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "CPU stand-in"; }
 
+// Double-precision arithmetic rounded to nearest, never contracted into an
+// FMA: the host's own operations (the test builds for the baseline x86-64 or
+// with -ffp-contract=off).
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline float __double2float_rn(double x) { return (float)x; }
+
 inline void __syncthreads() { pthread_barrier_wait(&emu_block->block_barrier); }
 inline void __syncwarp() {
   pthread_barrier_wait(&emu_block->warp_barriers[threadIdx.x >> 5]);
@@ -118,28 +125,33 @@ inline T __shfl_up_sync(unsigned, T v, int delta) {
 
 // kernel<<<blocks, threads, shared_bytes, stream>>>(args...), which the test
 // rewrites to emu_launch(kernel, blocks, threads, shared_bytes, stream, args...).
+// One host thread per thread of a block runs every block of the grid in turn;
+// a barrier ends each block before the next one starts.
 template <class Kernel, class... Args>
 void emu_launch(Kernel kernel, int blocks, int threads, size_t shared_bytes,
                 cudaStream_t, Args... args) {
   if (shared_bytes > kEmuSharedBytes || threads > 1024) std::abort();
   gridDim.x = blocks;
   blockDim.x = threads;
-  for (int b = 0; b < blocks; ++b) {
-    EmuBlock block;
-    emu_block = &block;
-    pthread_barrier_init(&block.block_barrier, nullptr, threads);
-    block.warp_barriers.resize((threads + 31) / 32);
-    for (size_t w = 0; w < block.warp_barriers.size(); ++w)
-      pthread_barrier_init(&block.warp_barriers[w], nullptr,
-                           std::min(32, threads - 32 * (int)w));
-    block.slots.assign(threads, 0);
-    std::vector<std::thread> lanes;
-    for (int t = 0; t < threads; ++t)
-      lanes.emplace_back([=] {
-        threadIdx.x = t;
+  EmuBlock block;
+  emu_block = &block;
+  pthread_barrier_init(&block.block_barrier, nullptr, threads);
+  block.warp_barriers.resize((threads + 31) / 32);
+  for (size_t w = 0; w < block.warp_barriers.size(); ++w)
+    pthread_barrier_init(&block.warp_barriers[w], nullptr,
+                         std::min(32, threads - 32 * (int)w));
+  block.slots.assign(threads, 0);
+  std::vector<std::thread> lanes;
+  for (int t = 0; t < threads; ++t)
+    lanes.emplace_back([=, &block] {
+      threadIdx.x = t;
+      for (int b = 0; b < blocks; ++b) {
         blockIdx.x = b;
         kernel(args...);
-      });
-    for (auto& lane : lanes) lane.join();
-  }
+        pthread_barrier_wait(&block.block_barrier);
+      }
+    });
+  for (auto& lane : lanes) lane.join();
+  pthread_barrier_destroy(&block.block_barrier);
+  for (auto& w : block.warp_barriers) pthread_barrier_destroy(&w);
 }

@@ -10,7 +10,8 @@ without one; on a machine with the card, run them with
 Tolerances: kernel vs plain version, both float32 on the same card, differ
 only in summation order: zcr EXACTLY equal, energy/entropy/mfcc and pitch
 confidence NMSE <= 1e-9, F0 equal on >= 99.9 % of frames (an argmax flips
-only where two lags tie to rounding).
+only where two lags tie to rounding). The VAD kernel's decisions and new
+state EQUAL the plain version's (float64 window sums of float32 inputs).
 """
 
 from pathlib import Path
@@ -21,8 +22,12 @@ import torch
 
 from sspv_tpu_torch.ops import _build
 from sspv_tpu_torch.ops import frame_kernels as fk
+from sspv_tpu_torch.ops import vad as tvad
+from sspv_tpu_torch.ops import vad_kernels
 from sspv_tpu_torch.ops import view_kernels as vk
 from sspv_tpu_torch.ops.pipeline import FeatureConfig, FeaturePipeline
+
+import vad_inputs
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -115,7 +120,8 @@ def test_build_recipe():
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
     for name, tpu in (("view_features.cu", "pallas_view.py:169"),
                       ("view_pitch.cu", "pallas_view.py:476"),
-                      ("frame_features.cu", "pallas_kernels.py:43")):
+                      ("frame_features.cu", "pallas_kernels.py:43"),
+                      ("vad.cu", "vad.py:401")):
         src = (REPO / "sspv_tpu_torch" / "csrc" / name).read_text()
         assert f"Replaces: sspv_tpu/ops/{tpu}" in src
         assert "What bounds it on the H100" in src
@@ -770,3 +776,162 @@ def test_entry_points_and_trace_on_the_card(tmp_path, capsys):
         (x @ x).sum().item()
     assert (tmp_path / "trace.json").stat().st_size > 0
     assert len(prof.key_averages()) > 0
+
+
+# -- K4: the streaming VAD on the card ----------------------------------------
+#
+# K4 against the plain version on the same card and inputs: decisions,
+# adaptive decisions and every field of the new state EQUAL.
+
+
+def _vad_same(got, want):
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+    for name, g, w in zip(tvad.VadState._fields, got[2], want[2]):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+
+
+def _vad_both(dev, e, z, h, state, valid=None, **kw):
+    """K4 (through its wrapper: one launch, its route counted) and the
+    plain version; K4's outputs."""
+    before, routes = dict(vk.LAUNCHES), dict(_build.ROUTES)
+    got = vad_kernels.fused_streaming_vad(e, z, h, state, valid=valid, **kw)
+    if e.shape[-1]:
+        assert vk.LAUNCHES["vad"] == before["vad"] + 1
+        blocked = kw.get("trailing_impl") == "blocked" and \
+            e.shape[-1] % kw.get("history_len", 256) == 0
+        route = "vad_blocked" if blocked else "vad_direct"
+        assert _build.ROUTES[route] == routes[route] + 1
+    want = tvad.streaming_vad(e, z, h, state, valid=valid, **kw)
+    torch.cuda.synchronize(dev)
+    _vad_same(got, want)
+    return got
+
+
+VAD_CARD_CASES = [
+    (b, f, impl, mask)
+    for b, f in [(1, 1), (3, 255), (8, 256), (3, 257), (8, 4096),
+                 (2, 400_128), (1, 399_999)]
+    for impl in ("conv", "blocked")
+    for mask in ("none", "prefix", "holes")
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,impl,mask", VAD_CARD_CASES,
+                         ids=["-".join(map(str, c)) for c in VAD_CARD_CASES])
+def test_vad_kernel_matches_plain_on_cuda(b, f, impl, mask):
+    """Rows with their own states and masks, then a second call on the new
+    states."""
+    dev = _device("cuda")
+    e, z, h, state = vad_inputs.vad_rows(b, f, seed=b + f, device=dev)
+    valid = vad_inputs.row_mask(mask, b, f, seed=f, device=dev)
+    kw = dict(vad_inputs.GATES, trailing_impl=impl)
+    _, _, state2 = _vad_both(dev, e, z, h, state, valid, **kw)
+    _vad_both(dev, e.flip(-1), z, h, state2, valid, **kw)
+    # one row alone is the 1-D call
+    _vad_both(dev, e[0], z[0], h[0], tvad.unstack_states(state2)[0],
+              None if valid is None else valid[0], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["conv", "blocked"])
+@pytest.mark.parametrize("tie", sorted(vad_inputs.TIES))
+def test_vad_kernel_decides_ties_on_cuda(tie, impl):
+    """The float32 threshold ties: K4 decides them as the plain version,
+    whole and split in two calls that carry the state."""
+    dev = _device("cuda")
+    e, z, h = (torch.from_numpy(x).to(dev) for x in vad_inputs.TIES[tie]())
+    kw = dict(vad_inputs.GATES, trailing_impl=impl)
+    whole = _vad_both(dev, e, z, h, tvad.initial_vad_state(device=dev), **kw)
+    _, _, s = _vad_both(dev, e[:4], z[:4], h[:4],
+                        tvad.initial_vad_state(device=dev), **kw)
+    tail = _vad_both(dev, e[4:], z[4:], h[4:], s, **kw)
+    assert torch.equal(tail[0], whole[0][4:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["conv", "blocked"])
+def test_vad_kernel_keeps_frame_46_on_cuda(impl):
+    """``synth_signal``'s features on the card (a float32 trailing mean
+    would flip frame 46): K4 exact length and padded to 256 under a mask,
+    as the pipeline's two VAD calls run them."""
+    from sspv_tpu_torch.utils.synth import synth_signal
+
+    dev = _device("cuda")
+    pipe = FeaturePipeline(FeatureConfig(vad_trailing_impl=impl), device=dev)
+    block, _ = pipe.process_signal_device(synth_signal(2.0))
+    e, z, h = block.energy, block.zcr, block.entropy
+    n = e.shape[0]
+    kw = pipe._vad_kwargs()
+    got = _vad_both(dev, e, z, h, pipe.initial_state(), **kw)
+    assert torch.equal(got[0], block.vad)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 256 - n))  # noqa: E731
+    padded = _vad_both(dev, pad(e), pad(z), pad(h), pipe.initial_state(),
+                       torch.arange(256, device=dev) < n, **kw)
+    assert torch.equal(padded[0][:n], block.vad)
+
+
+@pytest.mark.cuda
+def test_vad_kernel_has_no_fallback(monkeypatch):
+    """On a CUDA tensor a library that does not load, or a launch that
+    fails, raises: no plain version takes over."""
+    dev = _device("cuda")
+    e, z, h, state = vad_inputs.vad_rows(2, 300, seed=3, device=dev)
+
+    def no_library():
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        vad_kernels.fused_streaming_vad(e, z, h, state, **vad_inputs.GATES)
+
+    class Refusing:
+        def sspv_streaming_vad(self, *args):
+            return 1
+
+        def sspv_error_string(self, err):
+            return b"refused"
+
+    monkeypatch.setattr(_build, "library", Refusing)
+    before = vk.LAUNCHES["vad"]
+    with pytest.raises(RuntimeError, match="vad kernel launch failed"):
+        vad_kernels.fused_streaming_vad(e, z, h, state, **vad_inputs.GATES)
+    assert vk.LAUNCHES["vad"] == before
+
+
+@pytest.mark.cuda
+def test_pipeline_and_batch_launch_the_vad_kernel():
+    """The view path launches K4 once per call; a masked batch on a mesh
+    with two "data" rows once per row of the mesh, not once per signal,
+    and equals the CPU's batch program."""
+    from sspv_tpu_torch.parallel import BatchPipeline, Mesh
+
+    dev = _device("cuda")
+    sig = np.random.default_rng(1).normal(0, 3000, 48000).astype(np.float32)
+    pipe = FeaturePipeline(device=dev)
+    before = vk.LAUNCHES["vad"]
+    block, _ = pipe.process_signal_device(sig)
+    assert vk.LAUNCHES["vad"] == before + 1
+    want, _ = FeaturePipeline(device="cpu").process_signal_device(sig)
+    assert torch.equal(block.vad.cpu(), want.vad)
+    lengths = [16000, 8000, 319, 0, 12000, 16000]
+    sigs = np.zeros((6, 16000), np.int16)
+    rng = np.random.default_rng(2)
+    for i, n in enumerate(lengths):
+        sigs[i, :n] = rng.normal(0, 3000, n)
+    before = vk.LAUNCHES["vad"]
+    got = BatchPipeline(Mesh([[dev], [dev]])).process_batch_masked(
+        sigs, lengths)
+    assert vk.LAUNCHES["vad"] == before + 2
+    want = BatchPipeline(Mesh([[torch.device("cpu")], [torch.device("cpu")]])
+                         ).process_batch_masked(sigs, lengths)
+    for k in ("vad", "vad_adaptive", "zcr"):
+        assert torch.equal(getattr(got[0], k).cpu(), getattr(want[0], k)), k
+    # the state's buffers are copies of the features: zcr exact, energy
+    # to K3's tolerance against its plain version
+    for name in ("zcr_buf", "count", "last_voiced"):
+        assert torch.equal(getattr(got[1], name).cpu(),
+                           getattr(want[1], name)), name
+    assert _nmse(got[1].energy_buf.cpu(), want[1].energy_buf) <= 1e-9

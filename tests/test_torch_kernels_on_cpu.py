@@ -15,7 +15,8 @@ about what ``nvcc`` accepts or how fast anything is. Skips without ``g++``.
 Tolerances are the kernels' gates on the card: zcr EXACTLY equal (K1's of
 the raw samples, K3's of the windowed ones),
 energy/entropy/mfcc and pitch confidence NMSE <= 1e-9, F0 equal on >= 99.9 %
-of frames (all of them on these inputs).
+of frames (all of them on these inputs); K4's decisions, adaptive
+decisions and new state EXACTLY equal.
 """
 
 import ctypes
@@ -30,10 +31,18 @@ import torch
 
 from sspv_tpu_torch.ops import _build, fft_tables
 from sspv_tpu_torch.ops import frame_kernels as fk
+from sspv_tpu_torch.ops import vad as tvad
+from sspv_tpu_torch.ops import vad_kernels as vk4
 from sspv_tpu_torch.ops import view_kernels as vk
 from sspv_tpu_torch.ops.pipeline import FeatureConfig, FeaturePipeline
+from sspv_tpu_torch.utils.synth import synth_signal
+
+import oracle
+import vad_inputs
+from vad_inputs import row_mask, vad_rows
 
 REPO = Path(__file__).resolve().parents[1]
+GATES_K4 = vad_inputs.GATES
 CSRC = REPO / "sspv_tpu_torch" / "csrc"
 STUB = REPO / "tests" / "cuda_cpu_stub"
 LAUNCH = re.compile(r"(\w+)<<<([^>]+)>>>\(")
@@ -297,3 +306,165 @@ def test_entry_points_refuse_geometries_without_a_kernel(lib):
                                   1.0, p, p, p, p, None) != 0
     assert lib.sspv_view_features(p, 1, 300, p, p, 512, p, p, 26, p, p, 13,
                                   1.0, p, p, p, p, None) != 0
+
+
+# -- K4: the streaming VAD ----------------------------------------------------
+#
+# Held EXACTLY equal to the plain version: decisions, adaptive decisions and
+# every field of the new state. The window sums are float64 in both; where
+# their orders differ (the direct form) the sums agree to the last bit or
+# far below float32 resolution, and these inputs decide the same.
+
+H = 256
+
+
+def _k4(lib, e, z, h, state, valid=None, **kw):
+    """``vad_kernels.launch`` (the wrapper's own launch) against the CPU
+    library."""
+    err, route, out = vk4.launch(lib, e, z, h, state, None, valid=valid, **kw)
+    assert err == 0 and route is not None
+    return out
+
+
+def _k4_and_plain(lib, e, z, h, state, valid=None, **kw):
+    """K4 and the plain version on the same inputs, held equal; K4's
+    outputs."""
+    got = _k4(lib, e, z, h, state, valid, **kw)
+    want = tvad.streaming_vad(e, z, h, state, valid=valid, **kw)
+    assert torch.equal(got[0], want[0]) and got[0].dtype == torch.int32
+    assert torch.equal(got[1], want[1]) and got[1].dtype == torch.int32
+    for name, g, w in zip(tvad.VadState._fields, got[2], want[2]):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+    return got
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("mode", ["one call", "valid mask", "split at 4",
+                                  "split at 256"])
+@pytest.mark.parametrize("impl", ["conv", "blocked"])
+@pytest.mark.parametrize("tie", ["zcr_tie", "energy_tie", "full_history_tie"])
+def test_vad_kernel_on_cpu_decides_ties_as_plain(lib, tie, impl, mode):
+    """The float32 threshold ties of ``test_torch_vad_gate``
+    (``vad_inputs.TIES``): K4 decides them as the plain version and
+    ``EngineVadOracle`` do, in one call, under a valid mask and split in
+    two calls that carry the state."""
+    e, z, h = vad_inputs.TIES[tie]()
+    kw = dict(vad_inputs.GATES, trailing_impl=impl)
+    init = tvad.initial_vad_state(device=CPU)
+    n = e.size
+    if mode == "one call":
+        v, a, _ = _k4_and_plain(lib, _t(e), _t(z), _t(h), init, **kw)
+    elif mode == "valid mask":
+        pad = lambda x: _t(np.concatenate([x, np.zeros(256, np.float32)]))
+        v, a, _ = _k4_and_plain(lib, pad(e), pad(z), pad(h), init,
+                                torch.arange(n + 256) < n, **kw)
+        v, a = v[:n], a[:n]
+    else:
+        cut = int(mode.split()[-1])
+        v1, a1, s = _k4_and_plain(lib, _t(e[:cut]), _t(z[:cut]), _t(h[:cut]),
+                                  init, **kw)
+        v2, a2, _ = _k4_and_plain(lib, _t(e[cut:]), _t(z[cut:]), _t(h[cut:]),
+                                  s, **kw)
+        v, a = torch.cat([v1, v2]), torch.cat([a1, a2])
+    want_v, want_a = oracle.EngineVadOracle().run_all(e, z, h)
+    np.testing.assert_array_equal(v.numpy(), want_v)
+    np.testing.assert_array_equal(a.numpy(), want_a)
+
+
+@pytest.mark.parametrize("impl", ["conv", "blocked"])
+def test_vad_kernel_on_cpu_keeps_frame_46(lib, impl):
+    """``synth_signal``'s features, frame 46 among them (a float32 mean
+    would flip it): exact length and padded to 256 under a mask, as the
+    pipeline's two VAD calls run them."""
+    pipe = FeaturePipeline(FeatureConfig(vad_trailing_impl=impl), device="cpu")
+    block, _ = pipe.process_signal_device(synth_signal(2.0))
+    e, z, h = block.energy, block.zcr, block.entropy
+    kw = dict(pipe._vad_kwargs(), trailing_impl=impl)
+    init = pipe.initial_state()
+    v, a, _ = _k4_and_plain(lib, e, z, h, init, **kw)
+    want_v, want_a = oracle.EngineVadOracle().run_all(e.numpy(), z.numpy(),
+                                                      h.numpy())
+    np.testing.assert_array_equal(v.numpy(), want_v)
+    np.testing.assert_array_equal(a.numpy(), want_a)
+    n = e.shape[0]
+    pad = lambda x: torch.nn.functional.pad(x, (0, 256 - n))  # noqa: E731
+    v, a, _ = _k4_and_plain(lib, pad(e), pad(z), pad(h), init,
+                            torch.arange(256) < n, **kw)
+    np.testing.assert_array_equal(v[:n].numpy(), want_v)
+
+
+# (rows, frames, trailing sums, mask): every size class of the callers (one
+# frame, less than a block, a block, past a block, a long call) under each
+# mask, both sums where they differ (f a multiple of 256), and 4,096 frames
+# once each way (the emulated barriers make long calls slow here)
+VAD_CASES = [
+    (b, f, impl, mask)
+    for b, f in [(1, 1), (3, 255), (8, 256), (3, 257)]
+    for impl in (["conv", "blocked"] if f % 256 == 0 else ["conv"])
+    for mask in ("none", "prefix", "holes")
+] + [(1, 4096, "blocked", "prefix"), (1, 4096, "conv", "holes"),
+     (8, 4096, "blocked", "prefix")]
+
+
+@pytest.mark.parametrize("b,f,impl,mask", VAD_CASES,
+                         ids=["-".join(map(str, c)) for c in VAD_CASES])
+def test_vad_kernel_on_cpu_matches_plain(lib, b, f, impl, mask):
+    """Batched rows with their own states and masks, then a second call on
+    the new states: K4 equals the plain version exactly, and (up to 257
+    frames) a 1-D call of row 0 alone its batched row."""
+    e, z, h, state = vad_rows(b, f, seed=b * 1000 + f)
+    valid = row_mask(mask, b, f, seed=f)
+    kw = dict(GATES_K4, trailing_impl=impl)
+    _, _, state2 = _k4_and_plain(lib, e, z, h, state, valid, **kw)
+    got = _k4_and_plain(lib, e.flip(-1), z, h, state2, valid, **kw)
+    if f > 257:
+        return
+    one = _k4_and_plain(lib, e[0].flip(-1), z[0], h[0],
+                        tvad.unstack_states(state2)[0],
+                        None if valid is None else valid[0], **kw)
+    assert torch.equal(one[0], got[0][0]) and torch.equal(one[1], got[1][0])
+    for a, b_ in zip(one[2], tvad.unstack_states(got[2])[0]):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("knobs", [dict(adaptive_margin=1.5),
+                                   dict(composite_mode="and"),
+                                   dict(use_adaptive=False),
+                                   dict(hangover_on=0, release_off=0),
+                                   dict(hangover_on=5, release_off=7),
+                                   dict(history_len=100)])
+def test_vad_kernel_on_cpu_takes_every_knob(lib, knobs):
+    """The opt-in margin and "and" composite, the fixed gate alone, other
+    hangovers and another history length (blocked at 500 frames: a
+    multiple of 100)."""
+    hl = knobs.get("history_len", H)
+    f = 500 if hl == 100 else 512
+    e, z, h, _ = vad_rows(2, f, seed=7)
+    state = tvad.initial_states(2, hl, device=CPU)
+    for impl in ("conv", "blocked"):
+        kw = dict(GATES_K4, trailing_impl=impl, **knobs)
+        _, _, s = _k4_and_plain(lib, e, z, h, state, **kw)
+        _k4_and_plain(lib, e, z, h, s, row_mask("prefix", 2, f, seed=1), **kw)
+
+
+def test_vad_entry_point_refuses_what_it_does_not_take(lib):
+    """Blocked sums of a frame count that is no multiple of the history, a
+    mask without its counts, no frame, no row."""
+    z = torch.zeros(4096)
+    i = torch.zeros(4096, dtype=torch.int32)
+    p, q = z.data_ptr(), i.data_ptr()
+
+    def call(rows, f, hl, flags, valid=None, n_valid=None):
+        return lib.sspv_streaming_vad(
+            p, p, p, valid, n_valid, p, p, q, q, rows, f, hl, 1.0, 0.3, 0.6,
+            0.5, 0.5, 1e-6, 0.5, 1.0, flags, 5, q, q, q, p, p, q, q, None)
+
+    assert call(1, 100, 64, 0) == 0
+    assert call(1, 100, 64, 4) != 0
+    assert call(1, 128, 64, 4) == 0
+    assert call(1, 100, 64, 0, valid=p) != 0
+    assert call(1, 0, 64, 0) != 0 and call(0, 100, 64, 0) != 0

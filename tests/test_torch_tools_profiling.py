@@ -33,6 +33,7 @@ def test_time_blocked_vad_on_the_cpu():
     lines, vads = time_blocked_vad.run(20.0, "cpu", signal=sig)
     assert [x.get("variant") for x in lines] == [
         "full_vad_conv", "full_vad_blocked", None]
+    assert lines[0]["vad_routes"] == lines[1]["vad_routes"] == {}  # CPU
     assert lines[-1]["decision_mismatches"] == 0
     assert lines[-1]["frames"] == 1999 and lines[-1]["device"] == "cpu"
     from sspv_tpu_torch.ops.pipeline import FeaturePipeline
@@ -86,23 +87,27 @@ def test_vad_microbench_main(capsys):
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     names = [x.get("variant") for x in lines[:-1]]
     assert names == ["direct", "blocked", "conv1d", "matmul", "cummax",
-                     "vad_full_blocked", "vad_full_direct"]
+                     "vad_full_blocked", "vad_full_direct", "kernel"]
     for x in lines[:-1]:
         assert x["F"] == 1024 and x["valid_frames"] == 1000
         assert x["time_us"] is None and x["host_us"] > 0 and x["dtype"]
+    assert all(x["launches"] == {} for x in lines[:-1])  # nothing on the CPU
+    assert lines[-2]["equal_to_plain"]
     sums = {x["variant"]: x["max_rel_vs_direct"] for x in lines[:4]}
     assert sums["direct"] == 0 and sums["blocked"] <= 1e-12
     assert sums["matmul"] <= 1e-12 and sums["conv1d"] <= 1e-6
     assert set(lines[-1]["not_ported"]) == {"reduce_window"}
 
 
-def test_vad_microbench_full_calls_match_jax():
-    """The timed full VAD calls are the shipped streaming_vad: the JAX
-    package's decisions on the same random inputs and mask."""
+@pytest.mark.parametrize("kernel", [False, True])
+def test_vad_microbench_full_calls_match_jax(kernel):
+    """The timed full VAD calls, the plain ``streaming_vad`` and K4's
+    wrapper (its plain version on the CPU): the JAX package's decisions on
+    the same random inputs and mask."""
     f = 1024
     x = vad_microbench.inputs(f, CPU, valid_frames=1000)
     for impl in ("blocked", "conv"):
-        got = vad_microbench.vad_full(x, impl)
+        got = vad_microbench.vad_full(x, impl, kernel=kernel)
         want = jvad.streaming_vad(
             *(jnp.asarray(x[k].numpy()) for k in ("e", "z", "h")),
             jvad.initial_vad_state(), valid=jnp.asarray(x["valid"].numpy()),
@@ -158,6 +163,9 @@ def test_roofline_programs_on_the_cpu():
     assert analytic["feat_only"] == roofline.kernel_bound(
         "view_features", FeatureConfig(), 1199)
     assert analytic["pitch_kernel_only"]["kernel"] == "view_pitch"
+    # the VAD's one call runs over the features padded to 1,280 frames
+    assert analytic["vad_only"] == roofline.kernel_bound(
+        "vad", FeatureConfig(), 1280)
 
 
 def test_roofline_programs_compute_the_shipped_outputs():
@@ -302,14 +310,17 @@ HOUR_BOUNDS = {
     "view_features": ((0.087, "operations"), (0.295, "shared memory")),
     "view_pitch": ((0.171, "operations"), (1.020, "shared memory")),
     "frame_features": ((0.179, "bytes"), (0.295, "shared memory")),
+    "vad": ((0.002, "bytes"), (0.022, "shared memory")),
 }
+# K4 runs once over the hour's features padded to a multiple of 256
+HOUR_FRAMES = {"frame_features": 359_998, "vad": 360_192}
 
 
 @pytest.mark.parametrize("kernel", sorted(HOUR_BOUNDS))
 def test_kernel_bound_gives_the_hours_figures(kernel):
     cfg = (FeatureConfig(frame_size=400, hop_size=160)
            if kernel == "frame_features" else FeatureConfig())
-    frames = 359_998 if kernel == "frame_features" else 359_999
+    frames = HOUR_FRAMES.get(kernel, 359_999)
     b = roofline.kernel_bound(kernel, cfg, frames)
     (ms, by), (design, design_by) = HOUR_BOUNDS[kernel]
     assert round(b["bound_ms"], 3) == ms and b["bound_by"] == by
@@ -321,3 +332,16 @@ def test_kernel_bound_gives_the_hours_figures(kernel):
 def test_kernel_bound_takes_no_unknown_kernel():
     with pytest.raises(ValueError):
         roofline.kernel_bound("view_nothing", FeatureConfig(), 10)
+
+
+def test_kernel_bound_of_the_vad_counts_bytes_and_float64_sums():
+    """K4's bound: 20 bytes a frame (e, z, h in, two int32 decisions out)
+    plus the state; its design: 2 x 256 float64 adds a frame, and the
+    window reads from shared memory, which bound it."""
+    b = roofline.kernel_bound("vad", FeatureConfig(), 1000)
+    assert b["bytes"] == 1000 * 20 + 2 * (2 * 4 * 256 + 8)
+    assert b["design_ops"] >= 1000 * 2 * 256 > b["ops"]
+    assert b["smem_bytes"] == 1000 * 2 * 4 * 256
+    assert b["bound_ms"] == pytest.approx(1e3 * b["bytes"] / 3.35e12)
+    assert b["design_bound_ms"] == pytest.approx(
+        1e3 * b["smem_bytes"] / roofline.SMEM_BYTES_PER_S)

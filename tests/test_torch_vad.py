@@ -21,26 +21,11 @@ from sspv_tpu.ops import vad as jvad
 from sspv_tpu_torch.ops import vad as tvad
 
 import oracle
+from vad_inputs import synth_features
 
 CPU = torch.device("cpu")
 GATES = dict(energy_threshold=1000.0, zcr_threshold=0.3,
              entropy_voice_max=0.65, use_adaptive=True, adaptive_alpha=3.0)
-
-
-def synth_features(n, seed):
-    """Per-frame features with runs of voiced and silent frames."""
-    rng = np.random.default_rng(seed)
-    voiced = rng.random(n) < 0.35
-    for i in range(1, n):
-        if voiced[i - 1] and rng.random() < 0.6:
-            voiced[i] = True
-    energy = np.where(voiced, rng.uniform(2e3, 1e7, n),
-                      rng.uniform(0, 900, n)).astype(np.float32)
-    zcr = np.where(voiced, rng.uniform(0.01, 0.25, n),
-                   rng.uniform(0.2, 0.5, n)).astype(np.float32)
-    entropy = np.where(voiced, rng.uniform(0.2, 0.6, n),
-                       rng.uniform(0.6, 1.0, n)).astype(np.float32)
-    return energy, zcr, entropy
 
 
 def loud_then_quiet(n, seed):

@@ -28,46 +28,16 @@ from sspv_tpu.ops import vad as jvad
 from sspv_tpu_torch.ops import vad as tvad
 
 import oracle
-
-GATES = dict(energy_threshold=1000.0, zcr_threshold=0.3,
-             entropy_voice_max=0.65, use_adaptive=True, adaptive_alpha=3.0)
-ALPHA = 0.99  # adaptive_alpha 3.0 clamped, as the engine does
-F32 = np.float32
-N = 512  # two blocks of history_len: the blocked sums take the whole call
-TIE = 4  # the frame whose threshold ties
-
-
-def ulp(x) -> F32:
-    return np.spacing(F32(x))
-
-
-def zcr_tie():
-    """Four frames of history whose zcr mean is z + ulp/4, then a loud
-    frame with zcr z: its float64 threshold z + 0.2475 ulp lies strictly
-    between z and the next float32. Every other frame decides clearly:
-    falling energies keep the adaptive gate shut, and all stay below the
-    fixed energy gate."""
-    z = F32(11 / 512)
-    e, zc = np.empty(N, F32), np.empty(N, F32)
-    e[:TIE], zc[:TIE] = [120, 110, 105, 101], [z, z, z + ulp(z), z]
-    e[TIE], zc[TIE] = 500, z
-    e[TIE + 1:] = F32(90) - F32(0.125) * np.arange(N - TIE - 1, dtype=F32)
-    zc[TIE + 1:] = 0.4
-    return e, zc, np.full(N, 0.9, F32)
-
-
-def energy_tie():
-    """The same for the energy: a history whose mean is e - ulp/4 gives a
-    float64 threshold e - 0.2475 ulp, strictly between e's float32
-    neighbour below and e; its zcr passes clearly."""
-    es = F32(800)
-    e, zc = np.empty(N, F32), np.empty(N, F32)
-    e[:TIE], zc[:TIE] = [es, es, es - ulp(es), es], [0.40, 0.42, 0.44, 0.46]
-    e[TIE], zc[TIE] = es, 0.05
-    e[TIE + 1:] = F32(400) - F32(0.125) * np.arange(N - TIE - 1, dtype=F32)
-    zc[TIE + 1:] = 0.4
-    return e, zc, np.full(N, 0.9, F32)
-
+from vad_inputs import (
+    ALPHA,
+    F32,
+    GATES,
+    N,
+    TIE,
+    energy_tie,
+    full_history_tie,
+    zcr_tie,
+)
 
 TIES = {"zcr": zcr_tie, "energy": energy_tie}
 
@@ -149,21 +119,6 @@ def test_tie_decides_as_the_oracle_and_jax(tie, impl, mode):
     jax_v, jax_a = run_mode(run_jax, e, z, h, impl, mode)
     np.testing.assert_array_equal(got_a, jax_a)
     np.testing.assert_array_equal(got_v, jax_v)
-
-
-def full_history_tie():
-    """A full history (256 frames) of zcr 7/320 in float32, 40 of them one
-    float32 above: the threshold of the next frame at zcr 7/320 is
-    0.0218749999156 against a feature of 0.0218749996275, the shape of the
-    tie a test WAV showed (0.021875 against 0.0218750002860)."""
-    z = F32(7 / 320)
-    e, zc = np.empty(N, F32), np.full(N, z, F32)
-    e[:256] = F32(900) - F32(0.5) * np.arange(256, dtype=F32)
-    zc[256 - 40:256] = z + ulp(z)
-    e[256] = 950
-    e[257:] = F32(600) - F32(0.5) * np.arange(N - 257, dtype=F32)
-    zc[257:] = 0.4
-    return e, zc, np.full(N, 0.9, F32)
 
 
 @pytest.mark.parametrize("impl", ["conv", "blocked"])
