@@ -13,19 +13,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    with a Hann window and with a separate 1024-point entropy spectrum
    (its FFT route), and with an odd and a non-power-of-two ``n_fft`` (its
    dense route), and each again on its main path's own input, the engine's
-   bucket-padded blocks included (zcr exactly equal, energy/entropy/mfcc
+   blocks included (zcr exactly equal, energy/entropy/mfcc
    and pitch confidence NMSE <= 1e-9, F0 equal on >= 99.9 % of frames);
    then K4, the VAD kernel (``vad_kernel_runs``), on random rows of 1 to
    400,000 frames and on eight rows at 4,096 frames and at 2,048 s, each
    with a random state, no mask, a prefix mask with random counts and a
    mask with holes, on the float32 threshold ties of
    ``tests/vad_inputs.py``, with the direct and the blocked window sums,
-   twice each (the second call on the state the first left): decisions,
-   adaptive decisions and every field of the new state EQUAL to the plain
-   version's. Every later phase requires K4's launches (one per
-   features+VAD call, engine dispatch, batch on each "data" device and
-   ``process_long`` call) and holds K4 to its plain version on every VAD
-   input of the view path, the frames path, the engine runs and the corpus;
+   and on its lengths path (``vad_lengths_runs``: rows of ragged lengths,
+   one for all rows or one each, of 255 to 359,999 frames, none a
+   multiple of 256, in the blocked order of a padded count and in the
+   direct order), twice each (the second call on the state the first
+   left): decisions, adaptive decisions and every field of the new state
+   EQUAL to the plain version's. Every later phase requires K4's launches
+   (one per features+VAD call, engine dispatch, batch on each "data"
+   device and ``process_long`` call) and holds K4 to its plain version on
+   every VAD input of the view path, the frames path, the engine runs and
+   the corpus, each of which must give K4 lengths and no mask (no pad,
+   mask or mask sum around it);
 4. drives the offline view path on one hour of synthetic speech-like audio
    (``utils.synth.synth_signal``): ``process_signal_device`` (features + VAD) and
    ``pitch_track_signal`` on the uploaded rows view, then
@@ -44,10 +49,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    must end without error with all 59,999 frames, its kernel launched,
    features equal to the plain versions' ``process_signal`` on the CPU
    (zcr and VAD exactly, the rest NMSE <= 1e-9), VAD equal to the engine
-   oracle, and the kernel equal to its plain version on every block the
-   run gave it; a third, 30 s run
+   oracle, the kernel equal to its plain version on every block the run
+   gave it, and the frames its feature kernel computed equal to the
+   audio's own (no padding; printed as audio-seconds); a third, 30 s run
    with ``TPU_ENGINE_PITCH=1`` must give a median voiced F0 within 5 Hz of
-   130 Hz; ``save_data`` must write the 8-key npz schema;
+   130 Hz; ``save_data`` must write the 8-key npz schema; then
+   ``engine_trace``: eight dispatches of 2,048 and of 32 frames in each
+   mode under ``torch.profiler`` (kernels per dispatch, device busy time
+   and idle share);
 7. runs ``BatchPipeline.process_long`` and ``process_long_pitch`` on the
    same hour at 320/160 on a one-card mesh and on a mesh naming the card
    four times (four shards in turn): the shard route must launch K1 and K2
@@ -65,7 +74,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    1.5 s to 600 s cut from the same audio (every length bucket) and one
    2,100 s file (the oversized branch), once without and once with pitch,
    and ``python -m sspv_tpu_torch.batch --pitch`` on a few of them: one K3
-   launch per batch, every file equal to ``process_signal_auto`` on the card
+   launch per batch, only each file's own frames through the feature
+   kernels (the card's frames equal to the files' own, 7,858 audio-seconds;
+   a batch pads only to its longest file), every file equal to
+   ``process_signal_auto`` on the card
    (zcr and VAD exactly, the rest NMSE <= 1e-9), F0 equal to
    ``process_signal_pitch_auto`` on >= 99.9 % of frames, the npz schema and
    dtypes, every kernel equal to its plain version on every input the runs
@@ -96,8 +108,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    beside K1, K3 and K2 the FFT stage alone through ``torch.fft``, a
    yardstick the port never calls), K1 and K2 also at 322/161:
    the view and frames paths, ``process_long(_pitch)`` per mesh, and
-   ``process_batch_masked(_pitch)`` on one batch of eight 2,048 s rows with
-   its K3 launch and its one VAD call (K4 and its plain version) apart;
+   ``process_batch_masked(_pitch)`` and the corpus's ``_exact_batch`` on
+   one batch of eight 2,048 s rows with its K3 launch and its one VAD call
+   (K4 and its plain version, on the rows' lengths) apart;
    K4 and its plain version on the hour's full-length VAD call, with
    ``torch.cummax`` of the same seeds beside them (a yardstick the port
    never calls); and the engine's
@@ -117,7 +130,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     launches (K1 for features and VAD, K1 and K2 for pitch, K3 per stream
     dispatch, nothing else); the concurrent responses must equal the
     serial ones byte for byte and their launches add up; each kernel is
-    held to its plain version on the first 60 s request's inputs. It
+    held to its plain version on the first 60 s request's inputs; the
+    frames the feature kernels computed for the requests and for the
+    stream must equal the audio's own (printed as audio-seconds). It
     prints the warm-up seconds, p50/p95 latency per endpoint and size, and
     audio-s/s at 1, 4 and 8 clients and of the stream (host clock);
 12. runs ``sspv_tpu_torch.main.main(["--device", "cuda"])`` in this process
@@ -234,6 +249,10 @@ CLI_FILES = 5
 VAD_KERNEL_SIZES = ((1, 1), (1, 255), (1, 256), (1, 257), (1, 4096),
                     (1, 65_536), (1, 400_000), (1, 400_128), (8, 4096),
                     (8, 204_800))
+# K4's lengths path: (rows, frames), none a multiple of 256; the hour's
+# 359,999 frames in one row, and eight rows at the corpus's largest bucket
+VAD_LENGTH_SIZES = ((1, 255), (3, 1000), (8, 4097), (8, 204_799),
+                    (1, 359_999))
 NMSE_KERNEL = 1e-9  # fp32 kernel vs fp32 plain version: rounding order only
 NMSE_ORACLE = 1e-5  # the repo's feature-parity gate against the oracle
 F0_MATCH = 0.999  # argmax picks may flip where two lags tie to rounding
@@ -376,10 +395,52 @@ def vad_kernel_runs(device, err: dict) -> None:
                     and not vad_parity((e[4:], z[4:], h[4:], first), kw, err),
                     f"K4 equals plain on {tie} split in two, {impl}")
             cases += 3
+    cases += vad_lengths_runs(device, err, vad_inputs)
     sync(device)
     print(f"vad_kernel_runs: K4 equal to its plain version on {cases} calls "
           f"(rows x frames {list(VAD_KERNEL_SIZES)}, both sums, three masks, "
-          f"two calls each; the ties); max abs difference {err['vad']}")
+          f"two calls each; the ties; the lengths path at "
+          f"{list(VAD_LENGTH_SIZES)}); max abs difference {err['vad']}")
+
+
+def vad_lengths_runs(device, err: dict, vad_inputs) -> int:
+    """K4's lengths path against its plain version: rows of ragged
+    lengths, one length for every row or an int32 per row on the card,
+    the blocked order asked for at a frame count that is no multiple of
+    the history (the order of the padded call an exact-length call
+    replaces) and the direct order, two calls each on the state the first
+    left. Returns the calls made."""
+    import torch
+
+    from sspv_tpu_torch.ops import ROUTES
+    from sspv_tpu_torch.ops.vad_kernels import plain_streaming_vad
+
+    h = 256
+    cases = 0
+    for b, f in VAD_LENGTH_SIZES:
+        e0, z, hh, state0 = vad_inputs.vad_rows(b, f, seed=3 * b + f,
+                                                device=device)
+        rng = np.random.default_rng(f)
+        per_row = ([0, f, f // 2] + list(rng.integers(1, f, b)))[:b]
+        for kind in ("int", "rows"):
+            lengths = f - 3 if kind == "int" else torch.tensor(
+                per_row, dtype=torch.int32, device=device)
+            for route in ("blocked", "direct"):
+                rf = -(-f // h) * h + (0 if route == "blocked" else 1)
+                kw = dict(vad_inputs.GATES, trailing_impl="blocked",
+                          lengths=lengths, route_frames=rf)
+                e, state = e0, state0
+                for call in range(2):
+                    before = ROUTES["vad_" + route]
+                    require(not vad_parity((e, z, hh, state), kw, err),
+                            f"K4 equals plain: lengths {kind}, {b} x {f}, "
+                            f"{route}, call {call + 1}")
+                    require(ROUTES["vad_" + route] == before + 1,
+                            f"K4 took its {route} route")
+                    state = plain_streaming_vad(e, z, hh, state, **kw)[2]
+                    e = e.flip(-1)
+                cases += 2
+    return cases
 
 
 def frame_pipes(device) -> dict:
@@ -602,6 +663,51 @@ def recording_vad():
         pipeline_mod.fused_streaming_vad = wrapper
 
 
+@contextlib.contextmanager
+def frames_on_card():
+    """Count the frames the pipeline's feature kernels compute (K1: the
+    rows view's rows less one, K3: its frames), from any thread. Yields a
+    dict whose ``"frames"`` holds the count."""
+    import threading
+
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+
+    seen, lock = {"frames": 0}, threading.Lock()
+    k1, k3 = pipeline_mod.fused_view_features, pipeline_mod.fused_features
+
+    def add(n: int) -> None:
+        with lock:
+            seen["frames"] += n
+
+    def count_k1(rows, **kw):
+        add(rows.shape[0] - 1)
+        return k1(rows, **kw)
+
+    def count_k3(frames, **kw):
+        add(frames.shape[0])
+        return k3(frames, **kw)
+
+    pipeline_mod.fused_view_features = count_k1
+    pipeline_mod.fused_features = count_k3
+    try:
+        yield seen
+    finally:
+        pipeline_mod.fused_view_features = k1
+        pipeline_mod.fused_features = k3
+
+
+def audio_on_card(label: str, card_frames: int, audio_frames: int,
+                  audio_s: float | None = None) -> None:
+    """Print the audio-seconds the card's feature kernels processed beside
+    the audio's own (frames times the hop), and require them equal."""
+    own = f"{audio_s:.2f} s of audio, " if audio_s is not None else ""
+    print(f"{label}: {own}{audio_frames} frames ({audio_frames * 160 / SR:.2f}"
+          f" audio-s at the hop); the card processed {card_frames} frames "
+          f"({card_frames * 160 / SR:.2f} audio-s)")
+    require(card_frames == audio_frames,
+            f"{label}: the card processed the audio's own frames")
+
+
 def vad_parity(args: tuple, kw: dict, err: dict) -> list:
     """K4 against the plain version on the same inputs on the card: the
     outputs that differ (decisions, adaptive decisions, the state's
@@ -610,10 +716,11 @@ def vad_parity(args: tuple, kw: dict, err: dict) -> list:
     import torch
 
     from sspv_tpu_torch.ops import vad as vad_ops
-    from sspv_tpu_torch.ops.vad_kernels import fused_streaming_vad
+    from sspv_tpu_torch.ops.vad_kernels import (fused_streaming_vad,
+                                                plain_streaming_vad)
 
     got = fused_streaming_vad(*args, **kw)
-    want = vad_ops.streaming_vad(*args, **kw)
+    want = plain_streaming_vad(*args, **kw)
     names = ("vad", "vad_adaptive") + vad_ops.VadState._fields
     bad = []
     for name, g, w in zip(names, (*got[:2], *got[2]), (*want[:2], *want[2])):
@@ -627,25 +734,23 @@ def vad_parity(args: tuple, kw: dict, err: dict) -> list:
 
 def vad_calls_parity(calls: list, err: dict, label: str,
                      expected: int | None = None) -> None:
-    """K4 against its plain version on every recorded VAD call."""
+    """K4 against its plain version on every recorded VAD call, each of
+    which must give K4 its rows' lengths (or nothing) and no mask: no pad,
+    mask or mask sum runs around the kernel."""
     require(len(calls) > 0 and (expected is None or len(calls) == expected),
             f"{label} called the VAD wrapper {len(calls)} times")
     shapes = sorted({tuple(args[0].shape) for args, _ in calls})
+    masks = sum(kw.get("valid") is not None for _, kw in calls)
     bad = [vad_parity(args, kw, err) for args, kw in calls]
-    print(f"{label} K4 vs plain on {len(calls)} inputs (shapes {shapes}): "
-          f"outputs apart {[b for b in bad if b][:3]}")
+    print(f"{label} K4 vs plain on {len(calls)} inputs (shapes {shapes}, "
+          f"{masks} with a mask): outputs apart {[b for b in bad if b][:3]}")
     require(not any(bad), f"{label} K4 equals its plain version: {bad}")
+    require(masks == 0, f"{label}: K4 takes lengths, no mask")
 
 
-def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
-               pitch: bool = False, record: str | None = None) -> dict:
-    """One ``AudioRuntime`` run over an in-memory int16 source, read as fast
-    as it goes, to its end. Returns the engine, its launches and seconds,
-    and with ``record`` the name of a features kernel, a copy of the input
-    and the constants of each call the run made to its wrapper."""
-    from sspv_tpu_torch import AudioRuntime, Config
-    from sspv_tpu_torch.ops import LAUNCHES
-    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+def memory_source(data: np.ndarray):
+    """An ``AudioSource`` over in-memory int16 samples, read as fast as
+    the engine asks."""
     from sspv_tpu_torch.runtime.audio_source import AudioSource
 
     class MemorySource(AudioSource):
@@ -665,15 +770,115 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
         def close(self):
             pass
 
+    return MemorySource(data)
+
+
+# dispatches of the engine traced under torch.profiler, per dispatch size:
+# the top bucket (an engine that runs behind) and the smallest (the live
+# cadence)
+ENGINE_TRACE_DISPATCHES = 8
+ENGINE_TRACE_FRAMES = (2048, 32)
+
+
+def engine_trace(device, sig16: np.ndarray, samples_dispatch: int,
+                 frames_per_dispatch: int, card: str) -> dict:
+    """``ENGINE_TRACE_DISPATCHES`` engine dispatches of
+    ``frames_per_dispatch`` frames each, one in flight as the engine's loop
+    keeps them (``_dispatch*`` then ``_materialize`` of the one before),
+    under ``torch.profiler`` after a warm one: kernels per dispatch, the
+    device's busy time and idle share over the window
+    (``tools.roofline.read_trace``), recorded again up to 3 times while the
+    profiler keeps fewer kernels than the host launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from sspv_tpu_torch import AudioRuntime, Config
+    from sspv_tpu_torch.tools.roofline import read_trace
+
+    saved = Config.TPU_STREAM_SAMPLES_DISPATCH, Config.TPU_ENGINE_PITCH
+    Config.TPU_STREAM_SAMPLES_DISPATCH = samples_dispatch
+    Config.TPU_ENGINE_PITCH = False
+    try:
+        rt = AudioRuntime(audio_source=memory_source(sig16), device=device)
+    finally:
+        Config.TPU_STREAM_SAMPLES_DISPATCH, Config.TPU_ENGINE_PITCH = saved
+    hop, frame = 160, 320
+    blocks = []
+    for k in range(ENGINE_TRACE_DISPATCHES + 1):
+        lo = k * frames_per_dispatch
+        block = sig16[lo * hop : (lo + frames_per_dispatch - 1) * hop + frame]
+        blocks.append(block if samples_dispatch else
+                      rt.pipeline.stream_frames(block))
+    dispatch = rt._dispatch_samples if samples_dispatch else rt._dispatch
+
+    def run(part):
+        inflight = None
+        for block in part:
+            nxt = dispatch(block)
+            if inflight is not None:
+                rt._materialize(inflight)
+            inflight = nxt
+        rt._materialize(inflight)
+
+    mode = "samples" if samples_dispatch else "frames"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "engine_trace.json")
+        for attempt in range(1, 4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1,
+                                           repeat=1),
+                         on_trace_ready=lambda p: p.export_chrome_trace(path)
+                         ) as prof:
+                run(blocks[:1])
+                sync(device)
+                prof.step()
+                t0 = time.perf_counter()
+                run(blocks[1:])
+                sync(device)
+                wall = time.perf_counter() - t0
+                prof.step()
+            with open(path) as f:
+                got = read_trace(json.load(f)["traceEvents"],
+                                 ENGINE_TRACE_DISPATCHES)
+            if got["window_ms"] is not None:
+                break
+    out = {"mode": mode, "frames_per_dispatch": frames_per_dispatch,
+           "dispatches": ENGINE_TRACE_DISPATCHES, "attempts": attempt,
+           "host_ms_per_dispatch": 1e3 * wall / ENGINE_TRACE_DISPATCHES,
+           **{k: got[k] for k in ("kernel_launches_per_call", "window_ms",
+                                  "device_busy_ms", "idle_share",
+                                  "kernels_recorded", "kernels_launched",
+                                  "top_device_ops_ms")}}
+    out["device_trace"] = ("measured" if got["window_ms"] is not None else
+                           "not measured: the profiler kept "
+                           f"{got['kernels_recorded']} of "
+                           f"{got['kernels_launched']} kernels")
+    print(f"engine trace ({mode} dispatch, {frames_per_dispatch} frames a "
+          f"dispatch, torch.profiler) on {card}: " + json.dumps(out))
+    return out
+
+
+def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
+               pitch: bool = False, record: str | None = None) -> dict:
+    """One ``AudioRuntime`` run over an in-memory int16 source, read as fast
+    as it goes, to its end. Returns the engine, its launches and seconds,
+    and with ``record`` the name of a features kernel, a copy of the input
+    and the constants of each call the run made to its wrapper."""
+    from sspv_tpu_torch import AudioRuntime, Config
+    from sspv_tpu_torch.ops import LAUNCHES
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+
     n = 1 + (len(sig16) - 320) // 160
     Config.PROCESSED_DATA_BUFFER_SIZE = n
     Config.TPU_STREAM_SAMPLES_DISPATCH = samples_dispatch
     Config.TPU_ENGINE_PITCH = pitch
-    rt = AudioRuntime(audio_source=MemorySource(sig16), device=device)
+    rt = AudioRuntime(audio_source=memory_source(sig16), device=device)
     require(rt._samples_dispatch == bool(samples_dispatch), "dispatch mode")
     targets = [] if record is None else [
         (pipeline_mod, PIPELINE_WRAPPERS[record])]
-    with recording(targets) as calls, recording_vad() as vad_calls:
+    with recording(targets) as calls, recording_vad() as vad_calls, \
+            frames_on_card() as on_card:
         sync(rt.pipeline.device)
         reset_launches()
         t0 = time.perf_counter()
@@ -693,11 +898,13 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     require(rt.frames_processed == n, f"engine frames {rt.frames_processed}")
     require(launches["vad"] == rt.dispatch_count == len(vad_calls),
             f"engine ({mode}): K4 once per dispatch")
+    audio_on_card(f"engine ({mode} dispatch{', pitch' if pitch else ''})",
+                  on_card["frames"], rt.frames_processed, len(sig16) / SR)
     return {"rt": rt, "launches": launches, "seconds": seconds,
             "calls": calls, "vad_calls": vad_calls}
 
 
-def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
+def engine_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
     """Both dispatch modes over ENGINE_SECONDS, each held against the plain
     versions (``process_signal`` of a CPU pipeline, and each kernel call
     of the run) and the engine oracle, then a short pitch run and the npz
@@ -763,6 +970,8 @@ def engine_runs(device, sig: np.ndarray, err: dict) -> dict:
           f"f0 {median_f0:.3f} Hz")
     require(f0.size == run["rt"].frames_processed, "one f0 per frame")
     require(abs(median_f0 - 130.0) < 5.0, "engine median voiced f0 near 130 Hz")
+    out["traces"] = [engine_trace(device, sig16, mode, frames, card)
+                     for mode in (1, 0) for frames in ENGINE_TRACE_FRAMES]
     return out
 
 
@@ -1081,7 +1290,8 @@ def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                     recording([(pipeline_mod, "fused_view_features")]) as k1_calls, \
                     recording([(mesh_mod, "fused_view_pitch"),
                                (pitch_mod, "fused_view_pitch")]) as k2_calls, \
-                    recording_vad() as vad_calls:
+                    recording_vad() as vad_calls, \
+                    frames_on_card() as on_card:
                 sync(device)
                 reset_launches()
                 t0 = time.perf_counter()
@@ -1101,6 +1311,12 @@ def corpus_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                   f"{seconds['decode']:.3f} s, device {seconds['device']:.3f}"
                   f" s, write {seconds['write']:.3f} s) on {card}")
             require(all("error" not in s for s in summaries), "corpus errors")
+            audio_on_card(label, on_card["frames"],
+                          sum(s["frames"] for s in summaries), audio_s)
+            k2_frames = sum(x.shape[0] - 1 for x, _ in k2_calls)
+            if want_pitch:  # K2 runs each file's frames, plus one frame that
+                # straddles two files at each file's end in a batch
+                print(f"{label}: K2 computed {k2_frames} frames")
             require(launches["frame_features"] == n_batches,
                     f"{label}: one K3 launch per batch")
             require(launches["vad"] == n_batches + 1,
@@ -1256,7 +1472,7 @@ def batch_timings(device, sig: np.ndarray, card: str) -> dict:
     feats = {k: v.reshape((CORPUS_BATCH, f) + v.shape[1:])
              for k, v in pipe._features(frames).items()}
     from sspv_tpu_torch.ops import LAUNCHES
-    from sspv_tpu_torch.ops import vad as vad_ops
+    from sspv_tpu_torch.ops.vad_kernels import plain_streaming_vad
 
     sync(device)
     reset_launches()
@@ -1265,21 +1481,27 @@ def batch_timings(device, sig: np.ndarray, card: str) -> dict:
     require(LAUNCHES["vad"] == 1 and LAUNCHES["frame_features"] == 1,
             f"a batch of {CORPUS_BATCH} rows: one K3 and one K4 launch "
             f"({dict(LAUNCHES)})")
-    true_n = torch.as_tensor(bp._true_n(lengths), device=device)
-    valid = torch.arange(f, device=device)[None, :] < true_n[:, None]
+    true_n = torch.from_numpy(bp._true_n(lengths).astype(np.int32)).to(device)
     args = (feats["energy"], feats["zcr"], feats["entropy"],
             bp.initial_states(CORPUS_BATCH))
+    # the corpus's program on the same batch: only each row's own frames
+    route = 1 + (length - c.frame_size) // c.hop_size
 
     runs = {"process_batch_masked": lambda: bp.process_batch_masked(batch,
                                                                     lengths),
             "process_batch_masked_pitch":
                 lambda: bp.process_batch_masked_pitch(batch, lengths),
+            "exact_batch": lambda: bp._exact_batch(batch, lengths, route),
+            "exact_batch_pitch": lambda: bp._exact_batch(
+                batch, lengths, route, (50.0, 400.0)),
             "k3_on_batch_frames": lambda: pipe._features(frames),
-            "vad_batched": lambda: pipe._vad_core(*args, valid),
-            "vad_batched_plain": lambda: vad_ops.streaming_vad(
-                *args, valid=valid, **pipe._vad_kwargs())}
+            "vad_batched": lambda: pipe._vad_core(*args, None,
+                                                  lengths=true_n),
+            "vad_batched_plain": lambda: plain_streaming_vad(
+                *args, lengths=true_n, **pipe._vad_kwargs())}
     samples = {k: [] for k in runs}
     for a, b in (("process_batch_masked", "process_batch_masked_pitch"),
+                 ("exact_batch", "exact_batch_pitch"),
                  ("k3_on_batch_frames", "vad_batched"),
                  ("vad_batched_plain", "vad_batched")):
         for name in (a, b, b, a):
@@ -1695,11 +1917,16 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             "status": "ok", "backend": "cuda",
             "device_count": torch.cuda.device_count()}, "/healthz on the card")
 
+        served = {"card": 0, "audio": 0, "audio_s": 0.0}
+
         def post(path, body, headers=None):
             sync(device)
             reset_launches()
-            status, rtype, data, seconds = http_request(
-                port, "POST", path, body, headers or {"Content-Type": "audio/wav"})
+            with frames_on_card() as on_card:
+                status, rtype, data, seconds = http_request(
+                    port, "POST", path, body,
+                    headers or {"Content-Type": "audio/wav"})
+            served["card"] += on_card["frames"]
             return status, rtype, data, seconds, dict(LAUNCHES)
 
         def direct(samples, pitch):
@@ -1725,6 +1952,8 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             bad = equal_fields(res, {k: want[k] for k in keys})
             require(int(res["num_frames"]) == len(want["vad"]) and not bad,
                     f"{label}: response equals the direct call (not {bad})")
+            served["audio"] += int(res["num_frames"])
+            served["audio_s"] += len(samples) / SR
             require(launches == direct_launches == want_launches,
                     f"{label}: launches {launches}, direct {direct_launches}")
 
@@ -1797,6 +2026,8 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             out["latency"][label].append(seconds)
             check(label, "/v1/features", status, rtype, data, launches,
                   at_cap, False, k1)
+        audio_on_card("serve requests (60 s, 600 s, the cap)",
+                      served["card"], served["audio"], served["audio_s"])
         over = np.zeros(((cap + 1) * SR,), np.int16).tobytes()
         status, _, data, _, launches = post("/v1/features", over, {
             "Content-Type": "application/octet-stream", "X-Sample-Rate": str(SR)})
@@ -1813,8 +2044,9 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                                              + c.frame_size))
         sync(device)
         reset_launches()
-        status, rows, stream_s = stream_request(
-            port, "/v1/stream?pitch=1&mfcc=1", head, piece)
+        with frames_on_card() as on_card:
+            status, rows, stream_s = stream_request(
+                port, "/v1/stream?pitch=1&mfcc=1", head, piece)
         launches = dict(LAUNCHES)
         reset_launches()
         t0 = time.perf_counter()
@@ -1835,6 +2067,8 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
               f"{json.dumps(direct_launches)}), rows unequal: {bad[:5]}")
         require(not bad and frames == 1 + (len(head) - c.frame_size)
                 // c.hop_size, "stream rows equal stream_pitch bit for bit")
+        audio_on_card("serve stream", on_card["frames"], frames,
+                      len(head) / SR)
         require(launches == direct_launches and launches == {
             "view_features": 0, "view_pitch": 0,
             "frame_features": len(want), "vad": len(want)},
@@ -1940,11 +2174,12 @@ def request_breakdown(svc, samples: np.ndarray, wav: bytes, card: str) -> dict:
                   for e in prof.key_averages())
     ms["analyze_device_busy"] = busy_us / 1e3 if busy_us else None
     print(f"serve {len(samples) / SR:.0f} s /v1/features, where a request's "
-          f"time goes, ms (host clock, medians of 5; analyze: bucket padding, "
-          f"upload, the device call and one read-back per field; "
-          f"analyze_exact_length without the padding; analyze_device_busy: "
-          f"the card's own time in one analyze, torch.profiler, None if it "
-          f"saw none) on {card}: " + json.dumps(ms))
+          f"time goes, ms (host clock, medians of 5; analyze: upload, the "
+          f"device call at the signal's own length and one read-back per "
+          f"field; analyze_exact_length: process_signal_device alone on the "
+          f"same samples; analyze_device_busy: the card's own time in one "
+          f"analyze, torch.profiler, None if it saw none) on {card}: "
+          + json.dumps(ms))
     return ms
 
 
@@ -2618,18 +2853,17 @@ def roofline_runs(device, seconds: int, sig: np.ndarray,
                     f"{kernel} launch per call, nothing else "
                     f"({line['launches']})")
             a = line["analytic"]
-            want_frames = -(-n // 256) * 256 if kernel == "vad" else n
-            require(a["frames"] == want_frames and (
+            require(a["frames"] == n and (
                 bounds is None or ((a["bound_ms"], a["bound_by"]),
                                    a["design_bound_ms"]) == bounds[kernel]),
                     f"roofline {line['program']}: the bounds of "
                     "kernel_bounds")
 
 
-def roofline_trace_runs(device, seconds: int, traces) -> None:
+def roofline_trace_runs(device, seconds: int, traces) -> dict:
     """``python -m sspv_tpu_torch.tools.roofline --trace`` over ``traces``
     in a process of its own (a profiler that traced before in a process
-    may drop kernels): one trace line per target."""
+    may drop kernels): one trace line per target, returned by target."""
     out = subprocess.run(
         [sys.executable, "-m", "sspv_tpu_torch.tools.roofline", "--seconds",
          str(seconds), "--only", "rows_only", "--rounds", "1", "--trace",
@@ -2650,16 +2884,30 @@ def roofline_trace_runs(device, seconds: int, traces) -> None:
               f"{x['idle_share_unprofiled']} unprofiled, "
               f"{x['kernel_launches_per_call']} kernels per call, "
               f"{x['attempts']} attempt(s)")
+    return {x["trace_target"]: x for x in got}
+
+
+def k4_device_ms(trace: dict | None) -> float | None:
+    """K4's device time per call (its three kernels) in the ``roofline``
+    trace of the hour's VAD call, or None where it was not measured."""
+    if not trace or trace["device_trace"] != "measured":
+        return None
+    parts = {name.split("::")[-1].split("(")[0]: ms / trace["calls"]
+             for name, ms, _ in trace["top_device_ops_ms"] if "::vad_" in name}
+    print("K4 device ms per call at the hour (torch.profiler, roofline "
+          "vad_only trace): " + json.dumps(parts))
+    return sum(parts.values()) if len(parts) == 3 else None
 
 
 def tools_runs(device, pipe, main: dict, pipe400, frames_run,
-               long_sig: np.ndarray, card: str) -> None:
+               long_sig: np.ndarray, card: str) -> dict:
     """The port's last five tools on the card, each through its module's
     functions with the launch counts reset before it: ``time_blocked_vad``
     and ``ablate_bench`` on the hour, ``vad_microbench`` at the block and
     the hour's shape, ``resample_probe`` at 60 and 600 s, ``roofline`` at
     the hour and at 14,400 s, then its trace of the features, the VAD and
-    the pitch call at the hour in a process of its own."""
+    the pitch call at the hour in a process of its own (returned by
+    target)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     time_blocked_vad_runs(device, pipe, main)
@@ -2677,9 +2925,10 @@ def tools_runs(device, pipe, main: dict, pipe400, frames_run,
     bounds = kernel_bounds(pipe, main["rows"], pipe400, frames_run["frames"])
     roofline_runs(device, MAIN_SECONDS, main["signal"], bounds)
     roofline_runs(device, PROBE_LONG_SECONDS, long_sig, None)
-    roofline_trace_runs(device, MAIN_SECONDS, ROOFLINE_TRACES)
+    traces = roofline_trace_runs(device, MAIN_SECONDS, ROOFLINE_TRACES)
     tool_seconds("roofline", t0)
     print(f"tools_runs: {time.perf_counter() - t_phase:.1f} s on {card}")
+    return traces
 
 
 def time_ms(fn, reps: int = 5) -> list[float]:
@@ -2733,11 +2982,12 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
         return torch.fft.irfft(torch.fft.rfft(view_frames, n=1024).abs() ** 2,
                                n=1024)
 
-    # K4 on the main path's own call: the hour's features padded to a
-    # multiple of history_len under their mask; torch.cummax of the hour's
-    # seeds beside it, a yardstick the port never calls
+    # K4 on the main path's own call: the hour's features at their own
+    # length in the blocked order; torch.cummax of the hour's seeds beside
+    # it, a yardstick the port never calls
     from sspv_tpu_torch.ops import vad as vad_ops
-    from sspv_tpu_torch.ops.vad_kernels import fused_streaming_vad
+    from sspv_tpu_torch.ops.vad_kernels import (fused_streaming_vad,
+                                                plain_streaming_vad)
 
     with recording_vad() as vad_calls:
         pipe.process_signal_device(rows)
@@ -2746,7 +2996,7 @@ def timings(pipe, rows, pipe400, frames_run, card: str) -> dict:
 
     runs = {
         "vad": lambda: fused_streaming_vad(*vad_args, **vad_kw),
-        "vad_plain": lambda: vad_ops.streaming_vad(*vad_args, **vad_kw),
+        "vad_plain": lambda: plain_streaming_vad(*vad_args, **vad_kw),
         "vad_cummax_library": lambda: torch.cummax(seeds, 0),
         "view_features": lambda: vk.fused_view_features(rows, **feat),
         "view_features_plain": lambda: vk.view_features_plain(rows, **feat),
@@ -2803,12 +3053,11 @@ def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
 
     out = {}
     n = rows.shape[0] - 1
-    h = pipe.cfg.history_len
     for name, cfg, n in (("view_features", pipe.cfg, n),
                          ("view_pitch", pipe.cfg, n),
                          ("frame_features", pipe400.cfg, frames.shape[0]),
-                         # one call over the hour's padded features
-                         ("vad", pipe.cfg, -(-n // h) * h)):
+                         # one call over the hour's features (blocked)
+                         ("vad", pipe.cfg, n)):
         b = kernel_bound(name, cfg, n)
         out[name] = ((b["bound_ms"], b["bound_by"]), b["design_bound_ms"])
     return out
@@ -2861,7 +3110,7 @@ def main() -> int:
                              err)
     compare_frame_kernel(pipe400._frame_consts, [frames_run["frames"]], err,
                          "frames path")
-    engine = engine_runs(device, main["signal"], err)
+    engine = engine_runs(device, main["signal"], err, card)
     long_run = long_runs(pipe, device, main["rows"], err)
     gap_runs(device, main["signal"], err, card)
     corpus_runs(device, main["signal"], err, card)
@@ -2873,9 +3122,11 @@ def main() -> int:
     serve_runs(device, main["signal"], err, card)
     main_runs(device, main["signal"], engine, card)
     long_sig = examples_runs(device, main["signal"], card)
-    tools_runs(device, pipe, main, pipe400, frames_run, long_sig, card)
+    traces = tools_runs(device, pipe, main, pipe400, frames_run, long_sig,
+                        card)
     del long_sig
-    for kernel, run in engine.items():
+    for kernel in ("view_features", "frame_features"):
+        run = engine[kernel]
         mode = "samples" if kernel == "view_features" else "frames"
         print(f"engine {mode} dispatch: {ENGINE_SECONDS / run['seconds']:.1f} "
               f"audio-s/s (host clock, {ENGINE_SECONDS} s of audio) on {card}")
@@ -2921,14 +3172,17 @@ def main() -> int:
     # K4 takes the place of XLA's fusion of the JAX package's jitted
     # streaming_vad, which has no pallas_call; no single PyTorch call
     # computes it, and torch.cummax of the same seeds (its largest piece
-    # in the plain version) stands beside it as a yardstick
+    # in the plain version) stands beside it as a yardstick. Its "ms" is
+    # the wrapper's call between CUDA events, which the host's work around
+    # the launch sets; "device_ms" its three kernels' traced time
     kernels.append({
         "name": "vad", "route": "cuda", "source": "sspv_tpu_torch/csrc/vad.cu",
         "replaces": "sspv_tpu/ops/vad.py:401", "pallas": False,
         "launches": main["launches"]["vad"], "max_abs_err": err["vad"],
         "ms": ms["vad"], "plain_ms": ms["vad_plain"],
         "bound_ms": bounds["vad"][0][0], "bound_by": bounds["vad"][0][1],
-        "library_ms": None, "cummax_library_ms": ms["vad_cummax_library"]})
+        "library_ms": None, "cummax_library_ms": ms["vad_cummax_library"],
+        "device_ms": k4_device_ms(traces.get("vad"))})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,15 @@
 """Batch corpus processor: many audio files through the batched pipeline.
 
 The port's copy of ``sspv_tpu/batch.py``: walk files/directories, decode on
-host threads, group files into equal-shape device batches, and run each
-batch through ``parallel.BatchPipeline.process_batch_masked`` — a (B, L)
-zero-padded batch with B split over the mesh's "data" axis, every file
-carrying its own VAD state, padded frames masked out. File lengths pad up to
-``FeaturePipeline.SIGNAL_BUCKET_SECONDS`` buckets, so a corpus runs a handful
-of batch shapes (one per (batch, bucket)); each batch is one K3 launch per
-device.
+host threads, group files into device batches, and run each batch through
+the batch program of ``parallel.BatchPipeline`` (``_exact_batch``) — a
+(B, L) batch with B split over the mesh's "data" axis, every file carrying
+its own VAD state. The JAX package pads each batch to a
+``FeaturePipeline.SIGNAL_BUCKET_SECONDS`` bucket and to the full batch size
+to bound its compiles; here files group by that bucket (which still sets the
+order of the VAD's window sums), sorted by length so that rows of similar
+length share a batch, a batch pads only to its longest row, and only each
+file's own frames reach the kernels: one K3 launch per batch and device.
 
 On one card the same code runs with a 1-device mesh (the batch still
 amortizes launches across files); with several cards the "data" axis fans
@@ -72,7 +74,10 @@ def _decode(path: str) -> np.ndarray:
     return np.asarray(pcm, dtype=np.int16)
 
 
-def _bucket_len(num_samples: int, buckets_seconds, sample_rate: int) -> int | None:
+def _bucket_len(num_samples: int, buckets_seconds,
+                sample_rate: int) -> int | None:
+    """The samples of the smallest bucket that holds a file, None past
+    the largest."""
     for s in buckets_seconds:
         if num_samples <= s * sample_rate:
             return s * sample_rate
@@ -150,11 +155,14 @@ def process_corpus(
 
     Files are decoded in windows of ``files_per_pass`` (bounded host
     memory: one window of PCM plus one batch of features in flight),
-    grouped by signal bucket within each window, stacked into (B, L) masked
-    batches (B padded to a mesh-divisible size with zero-length rows), and
-    each batch is one batched device call. Feature npz files are written as
-    each file completes. Oversized files (beyond the largest bucket) run
-    individually through ``process_signal(_pitch)_auto``.
+    grouped by signal bucket within each window and sorted by length
+    there, stacked into (B, L) batches of at most ``batch_size`` files (L
+    the longest file's length, B rounded up to a mesh-divisible size with
+    zero-length rows), and each batch is one batched device call over the
+    files' own frames. Feature npz files are written as each file
+    completes, named in the window's bucket order as the JAX package names
+    them. Oversized files (beyond the largest bucket) run individually
+    through ``process_signal(_pitch)_auto``.
 
     ``mesh`` defaults to ``parallel.make_mesh(device=device)``: every card,
     or with ``device="cpu"`` one CPU device. ``seconds``, when given, is
@@ -202,13 +210,15 @@ def process_corpus(
             sink.write(json.dumps(summary) + "\n")
             sink.flush()  # checkpoint granularity = one file
 
+    npz_paths: dict[int, str] = {}
+
     def finish(i: int, path: str, pcm_len: int, sl: dict) -> None:
         """Summarize + write npz immediately so feature arrays free per file."""
         t0 = time.perf_counter()
         summary = summarize_features(path, pcm_len, sl, c.sample_rate)
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
-            npz_path = _unique_npz_path(out_dir, path, used_names)
+            npz_path = npz_paths.pop(i)
             export_features_npz(
                 npz_path, sl, c.sample_rate, c.frame_size, c.hop_size
             )
@@ -243,7 +253,7 @@ def process_corpus(
                 )))
             spent["decode"] += time.perf_counter() - t0
 
-            # group this window's file indices by padded bucket length;
+            # group this window's file indices by bucket length;
             # undecodable files become error summaries instead of aborting
             groups: dict[int | None, list[int]] = {}
             for i in window:
@@ -255,6 +265,11 @@ def process_corpus(
                     _bucket_len(len(signals[i]), buckets, c.sample_rate), []
                 ).append(i)
 
+            if out_dir:  # names claimed in the bucket order of the window
+                for idxs in groups.values():
+                    for i in idxs:
+                        npz_paths[i] = _unique_npz_path(out_dir, files[i],
+                                                        used_names)
             for target, idxs in groups.items():
                 if target is None:  # huge files: one call each
                     for i in idxs:
@@ -271,28 +286,30 @@ def process_corpus(
                         spent["device"] += time.perf_counter() - t0
                         finish(i, files[i], len(sig), sl)
                     continue
+                # the frames of the JAX package's (B, bucket) batch: the
+                # order of the VAD's window sums
+                route = 1 + (target - c.frame_size) // c.hop_size
+                idxs = sorted(idxs, key=lambda i: len(signals[i]))
                 for lo in range(0, len(idxs), batch_size):
                     chunk = idxs[lo : lo + batch_size]
-                    # Pad EVERY batch to the full (mesh-divisible) batch size:
-                    # extra rows carry lengths=0 and are fully masked, so a
-                    # ragged tail shares the (B, bucket) shape of full batches.
-                    b_pad = -(-batch_size // dp) * dp
-                    batch = np.zeros((b_pad, target), np.int16)
+                    # rows for the chunk's files, rounded up to a multiple
+                    # of the mesh's data axis with zero-length rows
+                    b_pad = -(-len(chunk) // dp) * dp
+                    width = max(len(signals[i]) for i in chunk)
+                    batch = np.zeros((b_pad, width), np.int16)
                     lengths = np.zeros((b_pad,), np.int32)
                     for row, i in enumerate(chunk):
                         sig = signals[i]
                         batch[row, : len(sig)] = sig
                         lengths[row] = len(sig)
                     t0 = time.perf_counter()
+                    # features + VAD (+ VAD-gated pitch) of the batch in one
+                    # call, one upload of the (B, L) batch
+                    block, f0_b, conf_b = bp._exact_batch(
+                        batch, lengths, route,
+                        (50.0, 400.0) if want_pitch else None)
                     if want_pitch:
-                        # features + VAD + VAD-gated pitch of the batch in
-                        # one call, one upload of the (B, L) batch
-                        block, _, f0_b, conf_b = bp.process_batch_masked_pitch(
-                            batch, lengths
-                        )
                         f0_b, conf_b = f0_b.cpu().numpy(), conf_b.cpu().numpy()
-                    else:
-                        block, _ = bp.process_batch_masked(batch, lengths)
                     host = _host_block(block)
                     spent["device"] += time.perf_counter() - t0
                     n_max = int(host["vad"].shape[1])

@@ -1,5 +1,5 @@
 // K4: the streaming composite VAD of B rows of f frames, each row with its
-// own carried state.
+// own carried state and its own length.
 //
 // Replaces: sspv_tpu/ops/vad.py:401 `streaming_vad`, which the JAX package
 // runs inside one jit program (XLA fuses its elementwise work; its hangover
@@ -7,13 +7,16 @@
 // batch programs (sspv_tpu/parallel/mesh.py:140-151). There is no
 // pl.pallas_call behind it: this kernel takes the place of XLA's fusion.
 //
-// Per row b and frame t < f, with H = history_len and ext = [the state's
-// buffer (H values), the inputs masked by `valid` (f values)]:
+// Per row b and frame t < f, with H = history_len, the row's frames valid
+// where the caller's mask says so or, without a mask, below the row's length
+// n_b, and ext = [the state's buffer (H values), the inputs, 0 where not
+// valid and past f]:
 //   sum_t    = ext[t] + ... + ext[t + H - 1] in float64: left to right
-//              (direct), or, where the caller asks for the blocked form
-//              (f % H == 0), the suffix of block q = t / H summed from its
-//              end plus the prefix of block q + 1 summed from its start, the
-//              order of the plain version's two sequential cumsums;
+//              (direct), or, where the caller asks for the blocked form, the
+//              suffix of ext block q = t / H summed from its end plus the
+//              prefix of block q + 1 summed from its start, the order of the
+//              plain version's two sequential cumsums (for any f: blocks past
+//              the row are zeros, and no window of a frame reaches them);
 //   mean_t   = sum_t / min(count + t, H), or ext[t + H] where that is 0;
 //   th_e     = max(a * mean_e + (1 - a) * e, min_e) (times the margin where
 //              it is not 1), th_z = min(a * mean_z + (1 - a) * z, max_z):
@@ -22,34 +25,55 @@
 //              host as Python computes it;
 //   adaptive = f32(e) > f32_rn(th_e) && f32(z) < f32_rn(th_z);
 //   initial  = e > T_E && (z < T_Z || h < H_max) in float64, or'ed (and'ed
-//              in the opt-in mode) with `adaptive`, and'ed with `valid`;
+//              in the opt-in mode) with `adaptive`, and'ed with validity;
 //   vad_t    = t - max(cummax_{s<=t}(initial_s ? s : -2^30), last_voiced)
 //              < on + max(off, 1).
-// The new state: buffers ext[n_valid .. n_valid + H), count' = min(count +
-// n_valid, H), last' = max(max_t seed_t, last_voiced) - n_valid.
+// The new state, with n the row's valid frames: buffers ext[n .. n + H),
+// count' = min(count + n, H), last' = max(max_t seed_t, last_voiced) - n.
 //
 // What bounds it on the H100: bytes. It reads e, z, h (12 bytes a frame) and
-// writes two int32 decisions (8 bytes): 7.2 MB for the hour's 360,192 frames,
-// 2.2 us at 3.35 TB/s. Its design adds 2 * H float64 additions a frame (the
-// window sums, 184 M at the hour: 5.5 us at the card's 33.5 TFLOP/s of
-// float64) and reads each staged value H times from shared memory.
-// What the design does about it: three launches on the caller's stream, no
-// host round trip, no atomics and no wait between blocks, so no result
-// depends on the order in which blocks run.
-//   A (gates): one frame a thread, 256 frames a block, grid (f / 256) x B.
-//     The block stages its 256 + H - 1 window values of e and z into shared
-//     memory (the state's buffer for the first blocks), each thread sums its
-//     windows in a fixed order, decides, writes vad_adaptive and its seed
-//     (into the vad output, which C overwrites), and the block writes the
-//     max of its seeds.
+// writes two int32 decisions (8 bytes): 7.2 MB for the hour's 359,999
+// frames, 2.1 us at 3.35 TB/s. The window sums are the only arithmetic that
+// grows with H.
+// What the design does about it:
+//   A (gates): 256 frames a block of 128 threads, grid (f / 256) x B, two
+//     frames a thread for the gates. The block stages its 256 + H - 1
+//     window values of e and z into shared memory once (the state's buffer
+//     for the first blocks; index x at x + x / 32, so the direct route's
+//     strided reads spread over the banks). Blocked route: for each ext
+//     block q that holds frames of the tile, one thread runs block q's
+//     float64 suffix scan from its end and one block q + 1's prefix scan
+//     from its start, once per feature; frame t = qH + r then takes
+//     suffix[r] + prefix[r]. Why the bits are the plain version's: its
+//     window sum of frame t is exactly these two partial sums (its reverse
+//     cumsum of block q at r: ext[qH + H - 1] + ... down to ext[qH + r],
+//     added in that order; its forward cumsum of block q + 1 before r),
+//     added as suffix + prefix; a scan computes each partial sum by the
+//     same chain of adds in the same order, once for all r of the block,
+//     where summing each window on its own redid the chain per frame. So
+//     each window sum, and every decision and state, is the same double
+//     bit for bit: two reads of shared memory a frame and feature, not H.
+//     A chain's latency, H dependent adds, is what a block waits for: its
+//     loads run 16 values ahead of its adds, and 11 blocks share an SM.
+//     Direct route: a thread owns 4 adjacent frames and adds each staged
+//     value it loads into every one of its 4 window sums that holds it;
+//     each sum still adds its H values left to right, with 4 times fewer
+//     shared loads. Each thread then decides, writes vad_adaptive and its
+//     seed (into the vad output, which C overwrites), and the block writes
+//     the max of its seeds.
 //   B (carries and state): one block per row. An exclusive max-scan of the
-//     row's block maxima (1,407 blocks at the hour, 5,625 at 14,400 s), in
-//     place, then the row's new state. A separate launch rather than each
-//     block of C reducing the maxima before it: O(blocks) work, not
-//     O(blocks^2), and the state is written once, in one place.
+//     row's block maxima (1,407 blocks at the hour), in place: each thread
+//     a run of them, one block-wide scan of the runs; then the row's new
+//     state. A separate launch rather than each block of C reducing the
+//     maxima before it: O(blocks) work, not O(blocks^2), and the state is
+//     written once, in one place.
 //   C (hangover): one frame a thread; an inclusive cummax of the block's
 //     seeds through warp shuffles and the warps' totals in shared memory,
 //     then the max with the block's carry and the state's last_voiced.
+// Three launches on the caller's stream, no host round trip, no atomics and
+// no wait between blocks, so no result depends on the order in which blocks
+// run. The row lengths arrive as numbers (one for every row, or an int32 per
+// row on the device): no mask, pad or count is formed around the launch.
 
 #include <climits>
 
@@ -57,8 +81,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // frames per block of launches A and C
+constexpr int kThreads = 256;  // threads per block of launches B and C
+constexpr int kTile = kThreads;  // frames per block of launches A and C
 constexpr int kWarps = kThreads / 32;
+// Threads per block of launch A, two frames each, and the blocks an SM must
+// hold at once (which caps a thread at 40 registers): 11 x 132 SMs hold the
+// hour's 1,407 blocks in one wave. A block waits mostly on its scans' chains
+// of dependent adds, so what counts is how many wait side by side.
+constexpr int kGateThreads = kTile / 2;
+constexpr int kGateBlocksPerSm = 11;
+constexpr int kOwn = 4;  // adjacent frames per thread of the direct route
+constexpr int kAhead = 16;  // staged values a thread loads before adding them
 constexpr int kNeg = -(1 << 30);  // the seed of a frame that is not voiced
 
 enum : int { kAdaptive = 1, kAndComposite = 2, kBlocked = 4, kMargin = 8 };
@@ -68,6 +101,18 @@ struct Gates {
   double alpha, one_minus_alpha, min_energy, max_zcr, margin;
   int flags, hang;  // hang = on + max(off, 1)
 };
+
+// The staged value x of a block lives at x + x / 32: the direct route's
+// threads read 4 values apart, which would put 4 of them in one bank.
+__device__ __forceinline__ int sk(int x) { return x + (x >> 5); }
+
+// The row's valid frame count: its entry of `n_valid`, or `n_len` for every
+// row, within [0, n_frames].
+__device__ __forceinline__ int row_valid(const int* n_valid, int n_len,
+                                         int row, int n_frames) {
+  const int n = n_valid != nullptr ? n_valid[row] : n_len;
+  return min(max(n, 0), n_frames);
+}
 
 __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
@@ -97,83 +142,198 @@ __device__ __forceinline__ int block_cummax(int v, int* warp_tot, int& total) {
   return max(v, before);
 }
 
-// Window sums of e and z over w[0 .. H): direct, or the blocked suffix +
-// prefix of a frame at offset r = t % H in its block.
-__device__ __forceinline__ void window_sums(const float* we, const float* wz,
-                                           int H, bool blocked, int r,
-                                           double& sum_e, double& sum_z) {
-  double se = 0.0, sz = 0.0;
-  if (!blocked) {
-    for (int k = 0; k < H; ++k) {
-      se += (double)we[k];
-      sz += (double)wz[k];
+// One serial chain of float64 adds: the `n` staged values at rd, rd + step,
+// ... added to `acc` in that order; with `store`, acc after each add goes to
+// dst[wr], dst[wr + step], .... The loads run kAhead values ahead of the
+// adds, whose latency is the chain's.
+__device__ __forceinline__ double chain(const float* src, int rd, int step,
+                                        int n, double acc, double* dst,
+                                        int wr, bool store) {
+  int m = 0;
+  for (; m + kAhead <= n; m += kAhead) {
+    float v[kAhead];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) v[k] = src[sk(rd + k * step)];
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) {
+      acc += (double)v[k];
+      if (store) dst[wr + k * step] = acc;
     }
-  } else {
-    for (int k = H - r - 1; k >= 0; --k) {  // the suffix, from its end
-      se += (double)we[k];
-      sz += (double)wz[k];
-    }
-    double pe = 0.0, pz = 0.0;
-    for (int k = H - r; k < H; ++k) {  // the next block's prefix
-      pe += (double)we[k];
-      pz += (double)wz[k];
-    }
-    se += pe;
-    sz += pz;
+    rd += kAhead * step;
+    wr += kAhead * step;
   }
-  sum_e = se;
-  sum_z = sz;
+  for (; m < n; ++m, rd += step, wr += step) {
+    acc += (double)src[sk(rd)];
+    if (store) dst[wr] = acc;
+  }
+  return acc;
 }
 
-__global__ void __launch_bounds__(kThreads) vad_gates_kernel(
+// Value m of a direct-route thread's staged run into each of its kOwn window
+// sums that holds it (window j holds values j .. j + H - 1).
+__device__ __forceinline__ void add_some(double (&ae)[kOwn],
+                                         double (&az)[kOwn], float ve,
+                                         float vz, int m, int H) {
+#pragma unroll
+  for (int j = 0; j < kOwn; ++j) {
+    if (m >= j && m - j < H) {
+      ae[j] += (double)ve;
+      az[j] += (double)vz;
+    }
+  }
+}
+
+// Floats of shared memory that launch A stages per feature (its 256 + H - 1
+// window values at their skewed indices) for a history of H.
+__host__ __device__ constexpr int gate_span(int H) {
+  return ((kTile + H - 2) + ((kTile + H - 2) >> 5)) + 1;  // sk(last) + 1
+}
+
+__global__ void __launch_bounds__(kGateThreads, kGateBlocksPerSm)
+vad_gates_kernel(
     const float* __restrict__ energy, const float* __restrict__ zcr,
     const float* __restrict__ entropy, const unsigned char* __restrict__ valid,
+    const int* __restrict__ n_valid, int n_len,
     const float* __restrict__ energy_buf, const float* __restrict__ zcr_buf,
     const int* __restrict__ count, int n_frames, int history_len,
     int n_blocks, Gates g, int* __restrict__ seeds,
     int* __restrict__ vad_adaptive, int* __restrict__ block_max) {
   extern __shared__ float4 smem4[];
   const int H = history_len;
-  const int span = kThreads + H - 1;
-  float* se = reinterpret_cast<float*>(smem4);
-  float* sz = se + span;
-  int* warp_tot = reinterpret_cast<int*>(sz + span);
+  const int span = kTile + H - 1;
+  // suffix (or direct) sums and prefix sums of the tile's frames
+  double* sum_e = reinterpret_cast<double*>(smem4);
+  double* sum_z = sum_e + kTile;
+  double* pre_e = sum_z + kTile;
+  double* pre_z = pre_e + kTile;
+  float* se = reinterpret_cast<float*>(pre_z + kTile);
+  float* sz = se + gate_span(H);
+  int* warp_tot = reinterpret_cast<int*>(sz + gate_span(H));
   const int row = blockIdx.x / n_blocks;
-  const int t0 = (blockIdx.x % n_blocks) * kThreads;
+  const int t0 = (blockIdx.x % n_blocks) * kTile;
+  const int n_tile = min(kTile, n_frames - t0);
   const size_t base = (size_t)row * n_frames;
-  const int ext_len = H + n_frames;
+  const int nv = row_valid(n_valid, n_len, row, n_frames);
+  const bool blocked = (g.flags & kBlocked) != 0;
 
-  for (int j = threadIdx.x; j < span; j += kThreads) {
-    const int x = t0 + j;  // index into ext
-    float e = 0.f, z = 0.f;
-    if (x < H) {
-      e = energy_buf[(size_t)row * H + x];
-      z = zcr_buf[(size_t)row * H + x];
-    } else if (x < ext_len) {
-      const size_t i = base + (x - H);
-      if (valid == nullptr || valid[i]) {
-        e = energy[i];
-        z = zcr[i];
+  // the loads of four values a thread go out before their stores
+  for (int j0 = threadIdx.x; j0 < span; j0 += 4 * kGateThreads) {
+    float ev[4], zv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * kGateThreads;
+      const int x = t0 + j;  // index into ext
+      ev[u] = zv[u] = 0.f;
+      if (j < span && x < H) {
+        ev[u] = energy_buf[(size_t)row * H + x];
+        zv[u] = zcr_buf[(size_t)row * H + x];
+      } else if (j < span && x - H < n_frames) {
+        const int k = x - H;
+        const size_t i = base + k;
+        if (valid != nullptr ? valid[i] != 0 : k < nv) {
+          ev[u] = energy[i];
+          zv[u] = zcr[i];
+        }
       }
     }
-    se[j] = e;
-    sz[j] = z;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * kGateThreads;
+      if (j < span) {
+        se[sk(j)] = ev[u];
+        sz[sk(j)] = zv[u];
+      }
+    }
   }
   __syncthreads();
 
-  const int t = t0 + threadIdx.x;
-  int seed = kNeg;
-  if (t < n_frames) {
+  if (blocked) {
+    // Four chains per ext block q with frames in the tile (q0 .. q0 + nq - 1):
+    // c & 1 the feature, c & 2 the suffix of block q (0) or the prefix of
+    // block q + 1 (2). The same calls for all, so the lanes of a warp agree.
+    const int q0 = t0 / H;
+    const int nq = (t0 + n_tile - 1) / H - q0 + 1;
+    for (int c = threadIdx.x; c < 4 * nq; c += kGateThreads) {
+      const int qs = (q0 + (c >> 2)) * H - t0;  // block q's start, > -H
+      const float* src = (c & 1) ? sz : se;
+      double* dst;
+      int rd, wr, step, len, skip;  // the first `skip` sums are not stored
+      if ((c & 2) == 0) {  // S[r] = ext[qs + r] + ... from qs + H - 1 down
+        dst = (c & 1) ? sum_z : sum_e;
+        rd = wr = qs + H - 1;
+        step = -1;
+        len = qs + H - max(qs, 0);
+        skip = max(0, rd - (n_tile - 1));  // frames past the tile
+      } else {  // P[r] = ext[qs + H] + ... + ext[qs + H + r - 1], P[0] = 0
+        dst = (c & 1) ? pre_z : pre_e;
+        if (qs >= 0) dst[qs] = 0.0;
+        rd = qs + H;
+        wr = qs + 1;
+        step = 1;
+        len = min(H - 1, n_tile - 1 - qs);
+        skip = min(len, max(0, -wr));  // frames before the tile
+      }
+      const double acc = chain(src, rd, step, skip, 0.0, dst, wr, false);
+      chain(src, rd + skip * step, step, len - skip, acc, dst,
+            wr + skip * step, true);
+    }
+  } else if (threadIdx.x < kTile / kOwn) {
+    // frames i0 .. i0 + kOwn - 1; frame i0 + j sums values j .. j + H - 1,
+    // so value m goes to every window when kOwn - 1 <= m < H (the body),
+    // and to some of them before and after it
+    const int i0 = threadIdx.x * kOwn;
+    const int all = H + kOwn - 1, lo = kOwn - 1, hi = max(lo, H);
+    double ae[kOwn], az[kOwn];
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) ae[j] = az[j] = 0.0;
+    for (int m = 0; m < lo; ++m)
+      add_some(ae, az, se[sk(i0 + m)], sz[sk(i0 + m)], m, H);
+    int m = lo;
+    for (; m + kAhead <= hi; m += kAhead) {
+      float ve[kAhead], vz[kAhead];  // loaded ahead of the adds
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        ve[k] = se[sk(i0 + m + k)];
+        vz[k] = sz[sk(i0 + m + k)];
+      }
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+#pragma unroll
+        for (int j = 0; j < kOwn; ++j) {
+          ae[j] += (double)ve[k];
+          az[j] += (double)vz[k];
+        }
+      }
+    }
+    for (; m < hi; ++m) {
+      const double ve = se[sk(i0 + m)], vz = sz[sk(i0 + m)];
+#pragma unroll
+      for (int j = 0; j < kOwn; ++j) {
+        ae[j] += ve;
+        az[j] += vz;
+      }
+    }
+    for (m = hi; m < all; ++m)
+      add_some(ae, az, se[sk(i0 + m)], sz[sk(i0 + m)], m, H);
+#pragma unroll
+    for (int j = 0; j < kOwn; ++j) {
+      sum_e[i0 + j] = ae[j];
+      sum_z[i0 + j] = az[j];
+    }
+  }
+  __syncthreads();
+
+  int seed = kNeg;  // the max of the thread's frames' seeds
+  for (int r = threadIdx.x; r < n_tile; r += kGateThreads) {
+    const int t = t0 + r;
     const size_t i = base + t;
-    double sum_e, sum_z;
-    window_sums(se + threadIdx.x, sz + threadIdx.x, H,
-                (g.flags & kBlocked) != 0, t % H, sum_e, sum_z);
+    // suffix + prefix, one rounding, as the plain version adds them
+    const double s_e = blocked ? sum_e[r] + pre_e[r] : sum_e[r];
+    const double s_z = blocked ? sum_z[r] + pre_z[r] : sum_z[r];
     const int cnt = min(count[row] + t, H);
     // where the history is empty, the mean is the masked current value
-    const double mean_e =
-        cnt > 0 ? sum_e / (double)cnt : (double)se[threadIdx.x + H];
-    const double mean_z =
-        cnt > 0 ? sum_z / (double)cnt : (double)sz[threadIdx.x + H];
+    const double mean_e = cnt > 0 ? s_e / (double)cnt : (double)se[sk(r + H)];
+    const double mean_z = cnt > 0 ? s_z / (double)cnt : (double)sz[sk(r + H)];
     const float ef = energy[i], zf = zcr[i];
     const double e64 = ef, z64 = zf, h64 = entropy[i];
     double th_e = __dadd_rn(__dmul_rn(g.alpha, mean_e),
@@ -189,17 +349,17 @@ __global__ void __launch_bounds__(kThreads) vad_gates_kernel(
     if (g.flags & kAdaptive)
       initial = (g.flags & kAndComposite) ? initial && adaptive
                                           : initial || adaptive;
-    if (valid != nullptr && !valid[i]) initial = false;
+    if (valid != nullptr ? valid[i] == 0 : t >= nv) initial = false;
     vad_adaptive[i] = adaptive ? 1 : 0;
-    seed = initial ? t : kNeg;
-    seeds[i] = seed;
+    seeds[i] = initial ? t : kNeg;
+    if (initial) seed = t;  // t grows along the loop
   }
   const int m = warp_max(seed);
   if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
     int bm = warp_tot[0];
-    for (int w = 1; w < kWarps; ++w) bm = max(bm, warp_tot[w]);
+    for (int w = 1; w < kGateThreads / 32; ++w) bm = max(bm, warp_tot[w]);
     block_max[blockIdx.x] = bm;
   }
 }
@@ -207,11 +367,12 @@ __global__ void __launch_bounds__(kThreads) vad_gates_kernel(
 __global__ void __launch_bounds__(kThreads) vad_carry_kernel(
     int* __restrict__ block_max, int n_blocks, const float* __restrict__ energy,
     const float* __restrict__ zcr, const unsigned char* __restrict__ valid,
-    const int* __restrict__ n_valid, const float* __restrict__ energy_buf,
-    const float* __restrict__ zcr_buf, const int* __restrict__ count,
-    const int* __restrict__ last_voiced, int n_frames, int history_len,
-    float* __restrict__ new_energy_buf, float* __restrict__ new_zcr_buf,
-    int* __restrict__ new_count, int* __restrict__ new_last_voiced) {
+    const int* __restrict__ n_valid, int n_len,
+    const float* __restrict__ energy_buf, const float* __restrict__ zcr_buf,
+    const int* __restrict__ count, const int* __restrict__ last_voiced,
+    int n_frames, int history_len, float* __restrict__ new_energy_buf,
+    float* __restrict__ new_zcr_buf, int* __restrict__ new_count,
+    int* __restrict__ new_last_voiced) {
   extern __shared__ float4 smem4[];
   int* warp_tot = reinterpret_cast<int*>(smem4);
   int* incl_of = warp_tot + kWarps;
@@ -219,22 +380,25 @@ __global__ void __launch_bounds__(kThreads) vad_carry_kernel(
   const int row = blockIdx.x;
   int* m = block_max + (size_t)row * n_blocks;
 
-  // the block maxima become the exclusive running max before each block
-  int carry = INT_MIN;
-  for (int c0 = 0; c0 < n_blocks; c0 += kThreads) {
-    const int j = c0 + threadIdx.x;
-    const int v = j < n_blocks ? m[j] : INT_MIN;
-    int total;
-    const int incl = block_cummax(v, warp_tot, total);
-    incl_of[threadIdx.x] = incl;
-    __syncthreads();
-    const int excl = threadIdx.x ? incl_of[threadIdx.x - 1] : INT_MIN;
-    if (j < n_blocks) m[j] = max(carry, excl);
-    carry = max(carry, total);
-    __syncthreads();  // incl_of is written again
+  // the block maxima become the exclusive running max before each block:
+  // each thread takes a run of `per` of them (its running max within the
+  // run), then one block-wide scan of the runs' maxima
+  const int per = (n_blocks + kThreads - 1) / kThreads;
+  const int j0 = min((int)threadIdx.x * per, n_blocks);
+  const int j1 = min(j0 + per, n_blocks);
+  int run = INT_MIN;
+  for (int j = j0; j < j1; ++j) run = max(run, m[j]);
+  int carry;  // the row's max
+  incl_of[threadIdx.x] = block_cummax(run, warp_tot, carry);
+  __syncthreads();
+  int before = threadIdx.x ? incl_of[threadIdx.x - 1] : INT_MIN;
+  for (int j = j0; j < j1; ++j) {
+    const int v = m[j];
+    m[j] = before;
+    before = max(before, v);
   }
 
-  const int nv = n_valid != nullptr ? n_valid[row] : n_frames;
+  const int nv = row_valid(n_valid, n_len, row, n_frames);
   if (threadIdx.x == 0) {
     new_count[row] = min(count[row] + nv, H);
     const int last = max(carry, last_voiced[row]);
@@ -248,6 +412,7 @@ __global__ void __launch_bounds__(kThreads) vad_carry_kernel(
       e = energy_buf[(size_t)row * H + x];
       z = zcr_buf[(size_t)row * H + x];
     } else {
+      // below the row's length: valid, unless a mask says otherwise
       const size_t i = (size_t)row * n_frames + (x - H);
       if (valid == nullptr || valid[i]) {
         e = energy[i];
@@ -266,7 +431,7 @@ __global__ void __launch_bounds__(kThreads) vad_hangover_kernel(
   extern __shared__ float4 smem4[];
   int* warp_tot = reinterpret_cast<int*>(smem4);
   const int row = blockIdx.x / n_blocks;
-  const int t = (blockIdx.x % n_blocks) * kThreads + threadIdx.x;
+  const int t = (blockIdx.x % n_blocks) * kTile + threadIdx.x;
   const size_t i = (size_t)row * n_frames + t;
   const int seed = t < n_frames ? vad[i] : kNeg;
   int total;
@@ -278,53 +443,54 @@ __global__ void __launch_bounds__(kThreads) vad_hangover_kernel(
 }  // namespace
 
 // The VAD of `rows` rows of `n_frames` frames (each array row-major, one row
-// after another). `valid` is a (rows, n_frames) uint8 mask or null (every
-// frame valid); `n_valid` its per-row count as int32 on the device, or null
-// with a null mask. The state is per row: buffers (rows, history_len) float32,
-// count and last_voiced (rows,) int32; the new state goes to separate arrays.
+// after another). Which frames are valid: `valid`, a (rows, n_frames) uint8
+// mask, with `n_valid` its per-row count as int32 on the device; or, with a
+// null mask, the first `n_valid[row]` frames of each row (int32 on the
+// device), or with that null too, the first `n_len` frames of every row.
+// The state is per row: buffers (rows, history_len) float32, count and
+// last_voiced (rows,) int32; the new state goes to separate arrays.
 // `block_max` is (rows, ceil(n_frames / 256)) int32 scratch. `flags`: 1 the
-// adaptive composite, 2 its "and" mode, 4 the blocked window sums (n_frames
-// a multiple of history_len), 8 a margin other than 1. Returns the CUDA error
-// of the launches (0 on success, cudaErrorInvalidValue for shapes it does
-// not take).
+// adaptive composite, 2 its "and" mode, 4 the blocked window sums (any
+// n_frames), 8 a margin other than 1. Returns the CUDA error of the launches
+// (0 on success, cudaErrorInvalidValue for shapes it does not take).
 extern "C" int sspv_streaming_vad(
     const float* energy, const float* zcr, const float* entropy,
-    const unsigned char* valid, const int* n_valid, const float* energy_buf,
-    const float* zcr_buf, const int* count, const int* last_voiced, int rows,
-    int n_frames, int history_len, double energy_threshold,
-    double zcr_threshold, double entropy_voice_max, double alpha,
-    double one_minus_alpha, double min_energy, double max_zcr, double margin,
-    int flags, int hang, int* block_max, int* vad, int* vad_adaptive,
-    float* new_energy_buf, float* new_zcr_buf, int* new_count,
-    int* new_last_voiced, void* stream) {
+    const unsigned char* valid, const int* n_valid, int n_len,
+    const float* energy_buf, const float* zcr_buf, const int* count,
+    const int* last_voiced, int rows, int n_frames, int history_len,
+    double energy_threshold, double zcr_threshold, double entropy_voice_max,
+    double alpha, double one_minus_alpha, double min_energy, double max_zcr,
+    double margin, int flags, int hang, int* block_max, int* vad,
+    int* vad_adaptive, float* new_energy_buf, float* new_zcr_buf,
+    int* new_count, int* new_last_voiced, void* stream) {
+  const size_t gate_smem = sizeof(double) * 4 * kTile +
+                           sizeof(float) * 2 * (size_t)gate_span(history_len) +
+                           sizeof(int) * kWarps;
   if (rows < 1 || n_frames < 1 || history_len < 1 ||
-      n_frames > (1 << 30) - kThreads ||
-      ((flags & kBlocked) && n_frames % history_len) ||
-      (valid == nullptr) != (n_valid == nullptr))
+      n_frames > (1 << 30) - kTile || (valid != nullptr && n_valid == nullptr)
+      || gate_smem > 232448)
     return (int)cudaErrorInvalidValue;
-  const int n_blocks = (n_frames + kThreads - 1) / kThreads;
+  const int n_blocks = (n_frames + kTile - 1) / kTile;
   if ((long long)rows * n_blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   const Gates g{energy_threshold, zcr_threshold, entropy_voice_max, alpha,
                 one_minus_alpha,  min_energy,    max_zcr,           margin,
                 flags,            hang};
   cudaStream_t s = (cudaStream_t)stream;
 
-  const size_t gate_smem = sizeof(float) * 2 * (kThreads + history_len - 1) +
-                           sizeof(int) * kWarps;
   cudaError_t err = cudaFuncSetAttribute(
       vad_gates_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)gate_smem);
   if (err != cudaSuccess) return (int)err;
-  vad_gates_kernel<<<rows * n_blocks, kThreads, gate_smem, s>>>(
-      energy, zcr, entropy, valid, energy_buf, zcr_buf, count, n_frames,
-      history_len, n_blocks, g, vad, vad_adaptive, block_max);
+  vad_gates_kernel<<<rows * n_blocks, kGateThreads, gate_smem, s>>>(
+      energy, zcr, entropy, valid, n_valid, n_len, energy_buf, zcr_buf, count,
+      n_frames, history_len, n_blocks, g, vad, vad_adaptive, block_max);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   vad_carry_kernel<<<rows, kThreads, sizeof(int) * (kWarps + kThreads), s>>>(
-      block_max, n_blocks, energy, zcr, valid, n_valid, energy_buf, zcr_buf,
-      count, last_voiced, n_frames, history_len, new_energy_buf, new_zcr_buf,
-      new_count, new_last_voiced);
+      block_max, n_blocks, energy, zcr, valid, n_valid, n_len, energy_buf,
+      zcr_buf, count, last_voiced, n_frames, history_len, new_energy_buf,
+      new_zcr_buf, new_count, new_last_voiced);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -119,7 +119,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sspv_frame_features_fft.restype = i
     d = ctypes.c_double
     lib.sspv_streaming_vad.argtypes = [
-        p, p, p, p, p, p, p, p, p, i, i, i, d, d, d, d, d, d, d, d, i, i,
+        p, p, p, p, p, i, p, p, p, p, i, i, i, d, d, d, d, d, d, d, d, i, i,
         p, p, p, p, p, p, p, p,
     ]
     lib.sspv_streaming_vad.restype = i

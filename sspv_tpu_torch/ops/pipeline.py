@@ -13,11 +13,19 @@ per-frame features:
   CUDA) on materialized ``(F, frame_size)`` frames.
 
 After either, ``fused_streaming_vad`` (kernel K4 on CUDA, the plain
-``vad.streaming_vad`` on the CPU) runs the composite VAD: exact-length up
-to ``SCAN_BLOCK_FRAMES`` frames, else once over the gate vectors padded to
-a multiple of ``history_len`` under a ``valid`` mask, exactly the branches
-of the JAX package (where ``streaming_vad`` is no Pallas kernel but XLA's
-fusion inside the jitted program; K4 takes its place).
+``vad.streaming_vad`` on the CPU) runs the composite VAD once over the
+call's frames (in the JAX package ``streaming_vad`` is no Pallas kernel but
+XLA's fusion inside the jitted program; K4 takes its place).
+
+Every entry point runs a signal or block at its own length. The JAX
+package pads them to length buckets (``SIGNAL_BUCKET_SECONDS``,
+``TPU_STREAM_BUCKETS``) and signals past ``SCAN_BLOCK_FRAMES`` frames to a
+multiple of ``history_len``, to bound its compiles; PyTorch compiles
+nothing, so the port pads nothing. What the padding decided besides the
+shape stays: the order of the VAD's float64 window sums (blocked where the
+padded frame count is a multiple of ``history_len``, else direct), which
+each call computes on the host from the padded count it replaces
+(``route_frames``) and hands to the VAD with each row's length.
 ``pitch_track_signal`` (kernel K2 on the rows view, or the Wiener-Khinchin
 matmuls on frames) gives the F0 track, gated on the VAD.
 
@@ -180,11 +188,14 @@ class FeaturePipeline:
     """Configured frame -> feature -> VAD -> pitch pipeline on one device,
     the card unless the caller asks for another (``device="cpu"``)."""
 
-    # Frames up to which the VAD runs at exact length; longer signals run it
-    # once over the gate vectors padded to a multiple of history_len.
+    # Frames past which the JAX package runs the VAD over the gate vectors
+    # padded to a multiple of history_len: such a call takes the blocked
+    # order of the window sums here too (_vad_route).
     SCAN_BLOCK_FRAMES = 32768
-    # Length buckets (seconds) of the *_auto entry points: inputs zero-pad up
-    # to one and the padded frames are masked out of the VAD state.
+    # The JAX package's length buckets (seconds) of the *_auto entry points.
+    # The port runs every signal at its own length; a signal's bucket sets
+    # only the order of its VAD's window sums (_auto_frames). Serve caps a
+    # request at the largest and warms up at their sizes.
     SIGNAL_BUCKET_SECONDS = (2, 8, 32, 128, 512, 2048)
     # Column layout of the packed feature block (frozen; split_packed_block
     # is the inverse): 0 energy, 1 zcr, 2 entropy, 3 vad, 4 vad_adaptive,
@@ -367,16 +378,30 @@ class FeaturePipeline:
     def _frames_on_device(self, frames) -> torch.Tensor:
         return self._upload(frames).to(torch.float32)
 
-    def _bucket_length(self, n_samples: int) -> int:
-        """Padded length of the *_auto entry points: the smallest bucket
-        that holds the signal, or beyond the largest, the next multiple of
-        it."""
-        sr = self.cfg.sample_rate
-        for s in self.SIGNAL_BUCKET_SECONDS:
-            if n_samples <= s * sr:
-                return s * sr
-        quantum = self.SIGNAL_BUCKET_SECONDS[-1] * sr
-        return -(-n_samples // quantum) * quantum
+    def _auto_frames(self, n_samples: int) -> int:
+        """The frames the JAX package's *_auto call of ``n_samples``
+        samples runs: those of the smallest ``SIGNAL_BUCKET_SECONDS``
+        bucket that holds the signal, or beyond the largest, of the next
+        multiple of it (``sspv_tpu/ops/pipeline.py:1052-1090``). The port
+        runs the signal's own frames and takes this count's VAD order."""
+        c = self.cfg
+        sr = c.sample_rate
+        target = next((s * sr for s in self.SIGNAL_BUCKET_SECONDS
+                       if n_samples <= s * sr), None)
+        if target is None:
+            quantum = self.SIGNAL_BUCKET_SECONDS[-1] * sr
+            target = -(-n_samples // quantum) * quantum
+        return 1 + (target - c.frame_size) // c.hop_size
+
+    def _vad_route(self, n: int) -> int:
+        """The frame count whose window-sum order the VAD of an ``n``-frame
+        signal call takes: ``n`` up to ``SCAN_BLOCK_FRAMES``, past it ``n``
+        rounded up to a multiple of ``history_len`` (the JAX package pads
+        the gate vectors of such a call to one: the blocked order)."""
+        if n <= self.SCAN_BLOCK_FRAMES:
+            return n
+        h = self.cfg.history_len
+        return -(-n // h) * h
 
     # -- device side --------------------------------------------------------
 
@@ -421,37 +446,34 @@ class FeaturePipeline:
             trailing_impl=c.vad_trailing_impl,
         )
 
-    def _vad_core(self, energy, zcr, entropy, state, valid):
+    def _vad_core(self, energy, zcr, entropy, state, valid, lengths=None,
+                  route_frames=None):
         """The composite VAD (K4 on CUDA) of ``(f,)`` or ``(B, f)``
-        features with the matching state and mask."""
+        features with the matching state and a mask, or each row's length
+        (an int or a ``(B,)`` int32 tensor on the device), in the window-sum
+        order of ``route_frames`` frames (default ``f``)."""
         return fused_streaming_vad(energy, zcr, entropy, state, valid=valid,
+                                   lengths=lengths, route_frames=route_frames,
                                    **self._vad_kwargs())
 
-    def _vad_stage(self, feats: dict, state, valid):
-        """Exact-length composite VAD over computed features."""
+    def _vad_stage(self, feats: dict, state, valid, lengths=None,
+                   route_frames=None):
+        """The composite VAD over computed features (see
+        :meth:`_vad_core`)."""
         vad, vad_adaptive, new_state = self._vad_core(
-            feats["energy"], feats["zcr"], feats["entropy"], state, valid
+            feats["energy"], feats["zcr"], feats["entropy"], state, valid,
+            lengths, route_frames,
         )
         return FeatureBlock(vad=vad, vad_adaptive=vad_adaptive, **feats), new_state
 
     def _vad_full_length(self, feats: dict, state, n: int, true_n=None):
-        """One VAD pass over e/z/h padded to a multiple of history_len
-        (blocked trailing sums), padded frames masked, decisions sliced
-        back. mfcc is not padded: the VAD never reads it."""
-        h = self.cfg.history_len
-        f_pad = -(-n // h) * h
-        e, z, ent = feats["energy"], feats["zcr"], feats["entropy"]
-        if f_pad != n:
-            e, z, ent = (
-                torch.nn.functional.pad(v, (0, f_pad - n)) for v in (e, z, ent)
-            )
-        valid = None
-        if f_pad != n or true_n is not None:
-            limit = n if true_n is None else true_n
-            valid = torch.arange(f_pad, device=e.device) < limit
-        vad, vad_adaptive, new_state = self._vad_core(e, z, ent, state, valid)
-        block = FeatureBlock(vad=vad[:n], vad_adaptive=vad_adaptive[:n], **feats)
-        return block, new_state
+        """The VAD of a signal call past ``SCAN_BLOCK_FRAMES``: one pass
+        over its ``n`` frames (the first ``true_n`` valid) in the blocked
+        order of ``n`` padded to a multiple of history_len, where the JAX
+        package pads the gate vectors; nothing is padded here."""
+        return self._vad_stage(feats, state, None, lengths=true_n,
+                               route_frames=-(-n // self.cfg.history_len)
+                               * self.cfg.history_len)
 
     def _empty_block(self) -> FeatureBlock:
         z = torch.zeros(0, dtype=torch.float32, device=self.device)
@@ -462,23 +484,26 @@ class FeaturePipeline:
             vad=zi, vad_adaptive=zi,
         )
 
-    def _process_block_impl(self, frames: torch.Tensor, state, valid):
-        return self._vad_stage(self._features(frames), state, valid)
+    def _process_block_impl(self, frames: torch.Tensor, state, valid,
+                            lengths=None, route_frames=None):
+        return self._vad_stage(self._features(frames), state, valid, lengths,
+                               route_frames)
 
     def _process_signal_view_impl(self, signal: torch.Tensor, state, n: int,
-                                  true_n: int | None = None):
+                                  true_n: int | None = None,
+                                  route_frames: int | None = None):
         """Features + VAD of the first ``n`` frames of ``signal`` (1-D
         samples or the ``(n+1, hop)`` rows view, on the device). ``true_n``
-        marks the real frame count of a signal padded to a bucket: frames
-        beyond it are masked out of the VAD state."""
+        marks the real frame count of a caller's padded signal: frames
+        beyond it are masked out of the VAD state. ``route_frames``: the
+        frame count of the padded call this one replaces (default ``n``),
+        whose VAD order it takes (:meth:`_vad_route`)."""
         x = signal.to(torch.float32)
         feats = self._view_features(x, n)
-        if n <= self.SCAN_BLOCK_FRAMES:
-            valid = None
-            if true_n is not None:
-                valid = torch.arange(n, device=x.device) < true_n
-            return self._vad_stage(feats, state, valid)
-        return self._vad_full_length(feats, state, n, true_n)
+        return self._vad_stage(
+            feats, state, None, lengths=true_n,
+            route_frames=self._vad_route(n if route_frames is None
+                                         else route_frames))
 
     def _process_signal_impl(self, signal: torch.Tensor, state):
         """``sspv_tpu/ops/pipeline.py:942-994``: the view path for a rows
@@ -501,18 +526,8 @@ class FeaturePipeline:
         f = frames.shape[0]
         if f == 0:
             return self._empty_block(), state
-        if f <= self.SCAN_BLOCK_FRAMES:
-            return self._process_block_impl(frames, state, None)
-        return self._vad_full_length(self._features(frames), state, f)
-
-    def _process_signal_masked_impl(self, padded: torch.Tensor, state,
-                                    true_n: int):
-        c = self.cfg
-        if padded.dim() == 2:
-            n = padded.shape[0] - 1
-        else:
-            n = 1 + (padded.shape[0] - c.frame_size) // c.hop_size
-        return self._process_signal_view_impl(padded, state, n, true_n=true_n)
+        return self._process_block_impl(frames, state, None,
+                                        route_frames=self._vad_route(f))
 
     # -- public API: frames ---------------------------------------------------
 
@@ -568,22 +583,21 @@ class FeaturePipeline:
         return self._process_signal_impl(sig, state)
 
     def process_signal_auto(self, signal, state=None):
-        """Like :meth:`process_signal_device`, for a host signal padded to a
-        ``SIGNAL_BUCKET_SECONDS`` bucket with the padded frames masked out
-        of the VAD state; the block is sliced back to the true length.
-        Frames geometries run at exact length, as in the JAX package."""
+        """Like :meth:`process_signal_device`, for a host signal: the JAX
+        package's bucketed call, run at the signal's own length with the
+        VAD order of its bucket (:meth:`_auto_frames`), so its block and
+        state are the bucketed call's. Frames geometries run
+        :meth:`process_signal_device`, as in the JAX package."""
         sig = self._host_signal(signal)
         if state is None:
             state = self.initial_state()
         c = self.cfg
         if not self._view_geometry or len(sig) < c.frame_size:
             return self.process_signal_device(sig, state)
-        true_n = 1 + (len(sig) - c.frame_size) // c.hop_size
-        sig = np.pad(sig, (0, self._bucket_length(len(sig)) - len(sig)))
-        block, new_state = self._process_signal_masked_impl(
-            self._upload(self.host_rows_view(sig)), state, true_n
-        )
-        return FeatureBlock(*(x[:true_n] for x in block)), new_state
+        rows = self.host_rows_view(sig)
+        return self._process_signal_view_impl(
+            self._upload(rows), state, rows.shape[0] - 1,
+            route_frames=self._auto_frames(len(sig)))
 
     def _pitch_kwargs(self, fmin: float, fmax: float) -> dict:
         c = self.cfg
@@ -597,11 +611,11 @@ class FeaturePipeline:
     def process_signal_pitch_auto(self, signal, state=None, fmin: float = 50.0,
                                   fmax: float = 400.0,
                                   min_confidence: float = 0.3):
-        """Features + VAD + VAD-gated pitch of a host signal, bucketed like
-        :meth:`process_signal_auto`, with the same outputs as it followed by
-        :meth:`pitch_signal_auto` (which frames geometries and sub-frame
-        inputs run). Returns ``(block, state, f0, conf)`` with ``f0``/
-        ``conf`` host arrays of the block's length."""
+        """Features + VAD + VAD-gated pitch of a host signal at its own
+        length, with the same outputs as :meth:`process_signal_auto`
+        followed by :meth:`pitch_signal_auto` (which frames geometries and
+        sub-frame inputs run). Returns ``(block, state, f0, conf)`` with
+        ``f0``/``conf`` host arrays of the block's length."""
         sig = self._host_signal(signal)
         if state is None:
             state = self.initial_state()
@@ -613,29 +627,25 @@ class FeaturePipeline:
                 min_confidence=min_confidence,
             )
             return block, new_state, f0, conf
-        true_n = 1 + (len(sig) - c.frame_size) // c.hop_size
-        sig = np.pad(sig, (0, self._bucket_length(len(sig)) - len(sig)))
-        padded = self._upload(self.host_rows_view(sig))
-        block, new_state = self._process_signal_masked_impl(
-            padded, state, true_n
-        )
-        # hangover can spill decisions past true_n into the padded tail:
-        # gate pitch on the real frames only, as the two-call path does
-        frame_idx = torch.arange(block.vad.shape[0], device=self.device)
-        gate_vad = torch.where(frame_idx < true_n, block.vad,
-                               torch.zeros_like(block.vad))
+        host_rows = self.host_rows_view(sig)
+        rows = self._upload(host_rows)
+        block, new_state = self._process_signal_view_impl(
+            rows, state, host_rows.shape[0] - 1,
+            route_frames=self._auto_frames(len(sig)))
         f0, conf = pitch_track_signal_gated(
-            padded, gate_vad, min_confidence, **self._pitch_kwargs(fmin, fmax)
+            rows, block.vad, min_confidence, **self._pitch_kwargs(fmin, fmax)
         )
-        block = FeatureBlock(*(x[:true_n] for x in block))
-        return (block, new_state, f0[:true_n].cpu().numpy(),
-                conf[:true_n].cpu().numpy())
+        return block, new_state, f0.cpu().numpy(), conf.cpu().numpy()
 
     def pitch_signal_auto(self, signal, vad, fmin: float = 50.0,
                           fmax: float = 400.0, min_confidence: float = 0.3):
-        """VAD-gated pitch track of a host signal, padded to a bucket (pad
-        frames are gated off, so the slice is exact). Returns host
-        ``(f0, conf)`` of ``len(vad)``."""
+        """VAD-gated pitch track of a host signal, the first ``len(vad)``
+        frames of the JAX package's bucketed call: pitch is frame-local, so
+        only those frames run. A ``vad`` one frame longer than the signal's
+        frames (ceil-framed) reads that frame's missing samples as zeros, as
+        the bucket's padding did; past the bucket's frames (a signal that
+        fills it) f0 and conf are 0. Returns host ``(f0, conf)`` of
+        ``len(vad)``."""
         c = self.cfg
         sig = self._host_signal(signal)
         vad = vad.cpu().numpy() if isinstance(vad, torch.Tensor) else np.asarray(vad)
@@ -643,23 +653,20 @@ class FeaturePipeline:
         if len(sig) < c.frame_size or n == 0:
             z = np.zeros((0,), np.float32)
             return z, z
-        psig = np.pad(sig, (0, self._bucket_length(len(sig)) - len(sig)))
-        n_pad = 1 + (len(psig) - c.frame_size) // c.hop_size
-        # vad may hold one frame more than the bucketed signal (a ceil-framed
-        # vad on a signal that fills its bucket): the missing frames stay 0
-        pvad = np.zeros((n_pad,), np.int32)
-        m = min(n, n_pad)
-        pvad[:m] = vad[:m]
-        rows = self.host_rows_view(psig)
+        m = min(n, self._auto_frames(len(sig)))
+        need = (m - 1) * c.hop_size + c.frame_size  # samples of m frames
+        sig = sig[:need] if len(sig) >= need else np.pad(
+            sig, (0, need - len(sig)))
+        rows = self.host_rows_view(sig)
         f0, conf = pitch_track_signal_gated(
-            self._upload(psig if rows is None else rows), pvad,
-            min_confidence, **self._pitch_kwargs(fmin, fmax),
+            self._upload(sig if rows is None else rows),
+            vad[:m].astype(np.int32), min_confidence,
+            **self._pitch_kwargs(fmin, fmax),
         )
-        f0 = f0.cpu().numpy()[:n]
-        conf = conf.cpu().numpy()[:n]
-        if n > f0.shape[0]:
-            f0 = np.pad(f0, (0, n - f0.shape[0]))
-            conf = np.pad(conf, (0, n - conf.shape[0]))
+        f0, conf = f0.cpu().numpy(), conf.cpu().numpy()
+        if n > m:
+            f0 = np.pad(f0, (0, n - m))
+            conf = np.pad(conf, (0, n - m))
         return f0, conf
 
     # -- streaming ----------------------------------------------------------
@@ -667,44 +674,42 @@ class FeaturePipeline:
     def stream(self, chunks, state=None, buckets: tuple[int, ...] | None = None):
         """Generator over an iterable of 1-D sample chunks (any dtype):
         carries the overlap tail and VadState across chunks and yields a
-        ``FeatureBlock`` per chunk that completed >= 1 frame. Frame blocks
-        pad to a small set of bucket shapes (default
-        ``Config.TPU_STREAM_BUCKETS``) under a ``valid`` mask and are sliced
-        back; blocks larger than the top bucket are split."""
-        def dispatch(part, st, valid):
-            block, new_state = self.process_block(part, st, valid=valid)
+        ``FeatureBlock`` per chunk that completed >= 1 frame. Blocks larger
+        than the top of ``buckets`` (default ``Config.TPU_STREAM_BUCKETS``)
+        are split there; each block runs at its own frame count with the
+        VAD order of its bucket, the shape the JAX package pads it to."""
+        def dispatch(part, st, bucket):
+            block, new_state = self._process_block_impl(
+                self._frames_on_device(part), st, None, route_frames=bucket)
             return new_state, (block,)
 
-        for m, (block,) in self._stream_core(chunks, state, buckets, dispatch):
-            yield FeatureBlock(*(x[:m] for x in block))
+        for (block,) in self._stream_core(chunks, state, buckets, dispatch):
+            yield block
 
     def stream_pitch(self, chunks, state=None,
                      buckets: tuple[int, ...] | None = None,
                      fmin: float = 50.0, fmax: float = 400.0,
                      min_confidence: float = 0.3):
         """:meth:`stream` plus a VAD-gated F0 track: yields
-        ``(FeatureBlock, f0, conf)`` per block, all sliced to the block's
-        true frame count (``f0``/``conf`` host arrays). The blocks equal
-        :meth:`stream`'s (one shared ``_stream_core``)."""
-        def dispatch(part, st, valid):
+        ``(FeatureBlock, f0, conf)`` per block (``f0``/``conf`` host
+        arrays). The blocks equal :meth:`stream`'s (one shared
+        ``_stream_core``)."""
+        def dispatch(part, st, bucket):
             frames = self._frames_on_device(part)
-            block, new_state = self._process_block_impl(frames, st, valid)
-            gate_vad = torch.where(valid, block.vad, torch.zeros_like(block.vad))
-            f0, conf = self._gated_frames_pitch(frames, gate_vad,
+            block, new_state = self._process_block_impl(
+                frames, st, None, route_frames=bucket)
+            f0, conf = self._gated_frames_pitch(frames, block.vad,
                                                 min_confidence, fmin, fmax)
-            return new_state, (block, f0, conf)
+            return new_state, (block, f0.cpu().numpy(), conf.cpu().numpy())
 
-        for m, (block, f0, conf) in self._stream_core(
-            chunks, state, buckets, dispatch
-        ):
-            yield (FeatureBlock(*(x[:m] for x in block)),
-                   f0.cpu().numpy()[:m], conf.cpu().numpy()[:m])
+        yield from self._stream_core(chunks, state, buckets, dispatch)
 
     def _stream_core(self, chunks, state, buckets, dispatch):
-        """Carry/framing/bucket-padding loop shared by :meth:`stream` and
-        :meth:`stream_pitch` (``pipeline.py:1387-1423``).
-        ``dispatch(part, state, valid) -> (new_state, outputs)``; yields
-        ``(true_m, outputs)``."""
+        """Carry/framing/splitting loop shared by :meth:`stream` and
+        :meth:`stream_pitch` (``pipeline.py:1387-1423``, which pads each
+        block to its bucket). ``dispatch(part, state, bucket) -> (new_state,
+        outputs)``, ``bucket`` the smallest of ``buckets`` that holds the
+        block; yields ``outputs``."""
         c = self.cfg
         if buckets is None:
             from ..config import Config, parse_buckets
@@ -726,13 +731,9 @@ class FeaturePipeline:
             carry = carry[n * c.hop_size :]
             for lo in range(0, n, top):
                 part = frames[lo : lo + top]
-                m = part.shape[0]
-                bucket = next((b for b in buckets if m <= b), top)
-                if bucket != m:
-                    part = np.pad(part, ((0, bucket - m), (0, 0)))
-                valid = torch.arange(bucket, device=self.device) < m
-                state, outputs = dispatch(part, state, valid)
-                yield m, outputs
+                bucket = next(b for b in buckets if part.shape[0] <= b)
+                state, outputs = dispatch(part, state, bucket)
+                yield outputs
 
     # -- packed programs (the engine's dispatches) --------------------------
 
@@ -760,38 +761,55 @@ class FeaturePipeline:
             fmin=fmin, fmax=fmax, acf_impl="dft",
         )
 
-    def _packed_block_core(self, frames_raw, packed_state, n_valid: int):
+    @staticmethod
+    def _gate_to(vad: torch.Tensor, n: int) -> torch.Tensor:
+        """``vad`` with the frames from ``n`` on (a caller's padding) off:
+        the VAD that gates a padded block's pitch."""
+        if n >= vad.shape[0]:
+            return vad
+        idx = torch.arange(vad.shape[0], device=vad.device)
+        return torch.where(idx < n, vad, torch.zeros_like(vad))
+
+    def _packed_block_core(self, frames_raw, packed_state, n_valid: int,
+                           route_frames: int | None):
         state = vad_ops.unpack_state(self._upload(packed_state),
                                      self.cfg.history_len)
         frames = self._frames_on_device(frames_raw)
-        valid = torch.arange(frames.shape[0], device=self.device) < int(n_valid)
-        block, new_state = self._process_block_impl(frames, state, valid)
-        return block, new_state, frames, valid
+        n = int(n_valid)
+        block, new_state = self._process_block_impl(
+            frames, state, None, lengths=n if n < frames.shape[0] else None,
+            route_frames=route_frames)
+        return block, new_state, frames, n
 
-    def process_block_packed(self, frames_raw, packed_state, n_valid: int):
+    def process_block_packed(self, frames_raw, packed_state, n_valid: int,
+                             route_frames: int | None = None):
         """A streaming block with single-buffer I/O: raw frames and the
         packed state in, one ``(F, 5 + num_ceps)`` block and the new packed
         state out (both on the device). Equal to :meth:`process_block` with
         the first ``n_valid`` frames valid; split with
-        :meth:`split_packed_block`."""
+        :meth:`split_packed_block`. ``route_frames``: the frame count of
+        the JAX package's call this one stands for (the engine's bucket of
+        an unpadded block), whose VAD order it takes; default ``F``."""
         block, new_state, _, _ = self._packed_block_core(
-            frames_raw, packed_state, n_valid
+            frames_raw, packed_state, n_valid, route_frames
         )
         return self._pack_block(block), vad_ops.pack_state(new_state)
 
     def process_block_packed_pitch(self, frames_raw, packed_state,
-                                   n_valid: int, min_confidence: float):
+                                   n_valid: int, min_confidence: float,
+                                   route_frames: int | None = None):
         """:meth:`process_block_packed` plus the VAD-gated F0 track: one
         ``(F, 7 + num_ceps)`` block (f0 and confidence appended)."""
-        block, new_state, frames, valid = self._packed_block_core(
-            frames_raw, packed_state, n_valid
+        block, new_state, frames, n = self._packed_block_core(
+            frames_raw, packed_state, n_valid, route_frames
         )
-        gate_vad = torch.where(valid, block.vad, torch.zeros_like(block.vad))
-        f0, conf = self._gated_frames_pitch(frames, gate_vad, min_confidence)
+        f0, conf = self._gated_frames_pitch(frames, self._gate_to(block.vad, n),
+                                            min_confidence)
         return (self._pack_block_pitch(block, f0, conf),
                 vad_ops.pack_state(new_state))
 
-    def _packed_signal_core(self, samples, packed_state, true_len: int):
+    def _packed_signal_core(self, samples, packed_state, true_len: int,
+                            route_frames: int | None):
         c = self.cfg
         state = vad_ops.unpack_state(self._upload(packed_state), c.history_len)
         if isinstance(samples, torch.Tensor):
@@ -804,32 +822,35 @@ class FeaturePipeline:
         true_n = (1 + (true_len - c.frame_size) // c.hop_size
                   if true_len >= c.frame_size else 0)
         block, new_state = self._process_signal_view_impl(
-            x, state, n, true_n=true_n
+            x, state, n, true_n=true_n if true_n < n else None,
+            route_frames=route_frames,
         )
-        return block, new_state, x, n, true_n
+        return block, new_state, x, true_n
 
-    def process_signal_packed(self, samples, packed_state, true_len: int):
-        """Bucketed raw int16 SAMPLES in (the engine's default dispatch),
-        framed on the device through the view path (K1 on CUDA); frames
-        beyond ``true_len`` samples are masked out of the carried state.
+    def process_signal_packed(self, samples, packed_state, true_len: int,
+                              route_frames: int | None = None):
+        """Raw int16 SAMPLES in (the engine's default dispatch), framed on
+        the device through the view path (K1 on CUDA); frames beyond
+        ``true_len`` samples (a caller's padding) are masked out of the
+        carried state. ``route_frames`` as in :meth:`process_block_packed`.
         Needs :meth:`supports_samples_dispatch`; a view geometry K1 does
         not take runs K3 on the frames formed on the device."""
         block, new_state, *_ = self._packed_signal_core(
-            samples, packed_state, true_len
+            samples, packed_state, true_len, route_frames
         )
         return self._pack_block(block), vad_ops.pack_state(new_state)
 
     def process_signal_packed_pitch(self, samples, packed_state,
-                                    true_len: int, min_confidence: float):
+                                    true_len: int, min_confidence: float,
+                                    route_frames: int | None = None):
         """:meth:`process_signal_packed` plus the VAD-gated F0 track, on the
         frame matrix formed on the device from the same samples."""
-        block, new_state, x, n, true_n = self._packed_signal_core(
-            samples, packed_state, true_len
+        block, new_state, x, true_n = self._packed_signal_core(
+            samples, packed_state, true_len, route_frames
         )
         frames = self._device_stream_frames(x)
-        valid = torch.arange(n, device=self.device) < true_n
-        gate_vad = torch.where(valid, block.vad, torch.zeros_like(block.vad))
-        f0, conf = self._gated_frames_pitch(frames, gate_vad, min_confidence)
+        f0, conf = self._gated_frames_pitch(
+            frames, self._gate_to(block.vad, true_n), min_confidence)
         return (self._pack_block_pitch(block, f0, conf),
                 vad_ops.pack_state(new_state))
 

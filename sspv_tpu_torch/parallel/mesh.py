@@ -11,14 +11,15 @@ device with ``.to``):
   the mesh's "data" axis; each group of rows runs on the first device of its
   "data" row. A device frames its rows on the device (int16 casts there),
   runs ONE K3 launch over all of its rows' frames, then ONE VAD call over
-  all of its rows, each with its own state and mask (K4, batched over the
+  all of its rows, each with its own state and length (K4, batched over the
   rows as the JAX package ``vmap``s the VAD). The pitch program runs one K2
-  launch over the rows views of all the device's rows.
+  launch over the rows views of all the device's rows. The corpus's batch
+  program (``_exact_batch``) runs only each row's own frames through them.
 - ``process_long`` and ``process_long_pitch`` split one signal's frames over
   every device of the flattened mesh. On the shard route
   (``_long_kernel_feats`` / ``_long_kernel_pitch``) each device runs K1 / K2
-  on a contiguous block of frames plus one seam row; one padded blocked VAD
-  then runs on the first device.
+  on a contiguous block of frames plus one seam row; one VAD in the blocked
+  order then runs on the first device.
 
 A mesh may name one device more than once (``Mesh([cuda0] * 4)``): its shards
 then run one after another on that card, which is how one card (or the CPU)
@@ -197,11 +198,35 @@ class BatchPipeline:
         block, states, (f0, conf) = self._rows(
             signals, lengths, states, (fmin, fmax)
         )
+        return (block, states,
+                *self._gated_pitch(block, lengths, f0, conf, min_confidence))
+
+    def _gated_pitch(self, block, lengths, f0, conf, min_confidence: float):
+        """The batch programs' pitch gate: ``(vad > 0) & (conf >=
+        min_confidence)``, and frames past each row's true length off.
+        Returns ``(f0, conf)``."""
         mc = float(np.float32(min_confidence))
         gate = (block.vad > 0) & (conf >= mc)
         if lengths is not None:
             gate &= self._valid(lengths, block.vad.shape[1], block.vad.device)
-        return block, states, torch.where(gate, f0, torch.zeros_like(f0)), conf
+        return torch.where(gate, f0, torch.zeros_like(f0)), conf
+
+    def _exact_batch(self, signals, lengths, route_frames: int,
+                     band: tuple | None = None, min_confidence: float = 0.3):
+        """The corpus's batch program: :meth:`process_batch_masked` (and
+        with ``band = (fmin, fmax)`` :meth:`process_batch_masked_pitch`) of
+        a ``(B, L)`` zero-padded batch from initial states, where only each
+        row's own frames reach the kernels: K3 on them alone, K2 on each
+        row's own rows view, and K4 on each row's length, in the VAD order
+        of ``route_frames`` frames (the bucket the JAX package's batch has).
+        Returns ``(block, f0, conf)`` (``f0``/``conf`` None without a band);
+        past a row's true frames the features, f0 and conf are 0."""
+        block, _, pitch = self._rows(signals, lengths, None, band,
+                                     route_frames, exact=True)
+        if band is None:
+            return block, None, None
+        return (block,
+                *self._gated_pitch(block, lengths, *pitch, min_confidence))
 
     def _true_n(self, lengths) -> np.ndarray:
         c = self.pipe.cfg
@@ -213,13 +238,17 @@ class BatchPipeline:
         true_n = torch.as_tensor(self._true_n(lengths), device=device)
         return torch.arange(f, device=device)[None, :] < true_n[:, None]
 
-    def _rows(self, signals, lengths, states, band):
+    def _rows(self, signals, lengths, states, band, route_frames=None,
+              exact: bool = False):
         """The batch programs' body: rows over "data", one K3 launch per
         device over its rows' frames, one VAD call per device over its rows
-        (exact length, each row with its own state and mask: the
-        ``vmap``ped ``_masked_row`` of the JAX package), and with
-        ``band = (fmin, fmax)`` the ungated pitch of every row. Returns ``(block, states,
-        (f0, conf) or None)`` on the mesh's first device."""
+        (each row with its own state and length: the ``vmap``ped
+        ``_masked_row`` of the JAX package; the window sums in the order of
+        ``route_frames`` frames, default the batch's), and with ``band =
+        (fmin, fmax)`` the ungated pitch of every row. ``exact``: only each
+        row's true frames run through K3 and K2 (``_exact_batch``). Returns
+        ``(block, states, (f0, conf) or None)`` on the mesh's first
+        device."""
         sig = _as_transfer_dtype(signals)
         if sig.ndim != 2:
             raise ValueError(f"signals must be (B, L), got {tuple(sig.shape)}")
@@ -239,26 +268,33 @@ class BatchPipeline:
             pipe = self._pipes[self.mesh.devices[i, 0]]
             rows = slice(i * per, (i + 1) * per)
             x = pipe._upload(sig[rows]).to(torch.float32)
-            frames = (x.unfold(1, c.frame_size, c.hop_size)
-                      .reshape(-1, c.frame_size)) if f else \
-                x.new_zeros((0, c.frame_size))
+            own = None  # with exact: each row's frame count
+            if exact and f:
+                own = [int(n) for n in true_n[rows]]
+                windows = x.unfold(1, c.frame_size, c.hop_size)
+                frames = torch.cat([windows[r, :n] for r, n in enumerate(own)])
+            elif f:
+                frames = (x.unfold(1, c.frame_size, c.hop_size)
+                          .reshape(-1, c.frame_size))
+            else:
+                frames = x.new_zeros((0, c.frame_size))
             feats = pipe._features(frames)  # one K3 launch for all rows
-            feats = {k: v.reshape((per, f) + v.shape[1:])
+            feats = {k: self._per_row(v, per, f, own)
                      for k, v in feats.items()}
-            valid = None
+            n = None
             if true_n is not None:
-                n = torch.as_tensor(true_n[rows], device=pipe.device)
-                valid = (torch.arange(f, device=pipe.device)[None, :]
-                         < n[:, None])
+                n = torch.from_numpy(true_n[rows].astype(np.int32)).to(
+                    pipe.device)
             # one VAD call over all rows (K4 on CUDA), each with its state
             block, st = pipe._vad_stage(
                 feats, _on(vad_ops.VadState(*(t[rows] for t in all_states)),
-                           pipe.device), valid)
+                           pipe.device), None, lengths=n,
+                route_frames=route_frames)
             blocks.append(FeatureBlock(*(t.to(dev0) for t in block)))
             new_states.append(_on(st, dev0))
             if band is not None:
-                pitch.append(tuple(t.to(dev0) for t in
-                                   self._rows_pitch(pipe, x, frames, f, *band)))
+                pitch.append(tuple(t.to(dev0) for t in self._rows_pitch(
+                    pipe, x, frames, f, *band, own=own)))
         block = FeatureBlock(*(torch.cat(ts) for ts in zip(*blocks)))
         new = vad_ops.VadState(*(torch.cat(ts) for ts in zip(*new_states)))
         out_pitch = None
@@ -267,28 +303,55 @@ class BatchPipeline:
         return block, new, out_pitch
 
     @staticmethod
-    def _rows_pitch(pipe, x, frames, f: int, fmin: float, fmax: float):
+    def _per_row(v: torch.Tensor, per: int, f: int, own) -> torch.Tensor:
+        """Per-frame values of the batch's rows as ``(per, f, ...)``:
+        ``v`` holds every frame of every row, or with ``own`` (each row's
+        frame count) only those, one row after another; the rest are 0."""
+        if own is None:
+            return v.reshape((per, f) + v.shape[1:])
+        out = v.new_zeros((per, f) + v.shape[1:])
+        for r, part in enumerate(v.split(own)):
+            out[r, : part.shape[0]] = part
+        return out
+
+    @classmethod
+    def _rows_pitch(cls, pipe, x, frames, f: int, fmin: float, fmax: float,
+                    own=None):
         """Ungated ``(f0, conf)``, ``(rows, f)`` each, of the rows of ``x``:
         one K2 launch over the concatenated rows views where K2 takes the
         geometry (row b's frame ``f``, which straddles rows b and b+1, is
-        dropped), else the frames pitch of ``frames``."""
+        dropped), else the frames pitch of ``frames``. With ``own`` (each
+        row's true frame count) ``frames`` holds only each row's own frames,
+        and K2 runs only each row's own ``n + 1`` rows."""
         c = pipe.cfg
         per = x.shape[0]
         kw = pipe._pitch_kwargs(fmin, fmax)
         if f == 0 or c.frame_size != 2 * c.hop_size:
             f0, conf = pitch_from_frames(frames, c.sample_rate, fmin, fmax,
                                          acf_impl="dft", bases=kw["bases"])
-            return f0.reshape(per, f), conf.reshape(per, f)
+            return cls._per_row(f0, per, f, own), cls._per_row(conf, per, f, own)
         hop = c.hop_size
         lag_min, lag_max = _lag_band(c.sample_rate, fmin, fmax, c.frame_size)
         merged, nyq_b, inv_live, inv_nyq = kw["bases"]
-        rows = x[:, : (f + 1) * hop].reshape(per * (f + 1), hop)
-        out = fused_view_pitch(rows, merged=merged, nyq_b=nyq_b,
-                               inv_live=inv_live, inv_nyq=inv_nyq,
-                               lag_min=lag_min, lag_max=lag_max,
-                               sample_rate=c.sample_rate)
-        return tuple(torch.nn.functional.pad(t, (0, 1)).reshape(per, f + 1)[:, :f]
-                     for t in out)
+        k2 = dict(merged=merged, nyq_b=nyq_b, inv_live=inv_live,
+                  inv_nyq=inv_nyq, lag_min=lag_min, lag_max=lag_max,
+                  sample_rate=c.sample_rate)
+        xr = x[:, : (f + 1) * hop].reshape(per, f + 1, hop)
+        if own is None:
+            out = fused_view_pitch(xr.reshape(per * (f + 1), hop), **k2)
+            return tuple(torch.nn.functional.pad(t, (0, 1))
+                         .reshape(per, f + 1)[:, :f] for t in out)
+        # each row with frames: its n + 1 rows, one after another; the frame
+        # at each row's end straddles two rows and is dropped
+        if not any(own):  # only empty rows on this device
+            z = x.new_zeros((per, f))
+            return z, z.clone()
+        out = fused_view_pitch(
+            torch.cat([xr[r, : n + 1] for r, n in enumerate(own) if n]), **k2)
+        starts = np.cumsum([0] + [n + 1 for n in own if n])
+        return tuple(cls._per_row(torch.cat(
+            [t[s : s + n] for s, n in zip(starts, (n for n in own if n))]),
+            per, f, own) for t in out)
 
     # -- one long signal ----------------------------------------------------
 

@@ -14,8 +14,10 @@ Internally the design is block-parallel instead of a per-frame Python loop:
 - a capture thread performs the blocking device/file reads (I/O needs a
   thread; that part of the reference architecture is sound);
 - the processing thread accumulates samples with a carried overlap tail
-  (streaming semantics: full frames only, engine.py:240-242), pads to a
-  small set of bucket sizes, and dispatches the whole block to the device
+  (streaming semantics: full frames only, engine.py:240-242), splits it
+  at the top of a small set of bucket sizes, and dispatches each block at
+  its own frame count (the JAX engine pads it to its bucket; here the
+  bucket sets only the VAD's summation order) to the device
   pipeline (features + composite VAD with carried packed ``VadState``) in
   ONE packed program. By default the payload is the RAW int16 sample block,
   framed on the device through the signal-view path (kernel K1; 4x fewer
@@ -179,8 +181,9 @@ class AudioRuntime:
             getattr(Config, "TPU_STREAM_BUCKETS", (32, 256, 2048))
         )
         # Low-latency mode: no in-flight block (each dispatch is materialized
-        # immediately) + an extra small bucket so a near-real-time cadence
-        # (a handful of frames per capture chunk) doesn't pad to 32.
+        # immediately) + the JAX engine's extra small bucket, which there
+        # spares a near-real-time cadence (a handful of frames per capture
+        # chunk) the pad to 32; here it sets the VAD order of such blocks.
         self._low_latency = _parse_flag(
             getattr(Config, "TPU_LOW_LATENCY", 0), False, "TPU_LOW_LATENCY"
         )
@@ -418,8 +421,7 @@ class AudioRuntime:
         for b in self._buckets:
             if n <= b:
                 return b
-        # callers split blocks larger than the top bucket (_process_loop), so
-        # the shape set stays fixed
+        # callers split blocks larger than the top bucket (_process_loop)
         return self._buckets[-1]
 
     def _start_readback(self, out: torch.Tensor):
@@ -437,49 +439,46 @@ class AudioRuntime:
         return host, done
 
     def _dispatch(self, frames: np.ndarray):
-        """Pad to a bucket and enqueue one packed device program and the
-        readback of its block (non-blocking). Packed I/O: frames + one
+        """Enqueue one packed device program on the block's own frames and
+        the readback of its block (non-blocking). Packed I/O: frames + one
         packed-state buffer in, one packed block out (the new state never
-        leaves the device).
+        leaves the device). The block's bucket, the shape the JAX engine
+        pads it to, sets only the VAD's summation order.
         """
         n = frames.shape[0]
         bucket = self._bucket_for(n)
-        if bucket != n:
-            frames = np.pad(frames, ((0, bucket - n), (0, 0)))
         if self._pitch_enabled:
             out, self._vad_state_packed = (
                 self.pipeline.process_block_packed_pitch(
-                    frames, self._vad_state_packed, n, self._pitch_min_conf
+                    frames, self._vad_state_packed, n, self._pitch_min_conf,
+                    route_frames=bucket,
                 )
             )
         else:
             out, self._vad_state_packed = self.pipeline.process_block_packed(
-                frames, self._vad_state_packed, n
+                frames, self._vad_state_packed, n, route_frames=bucket
             )
         self.dispatch_count += 1
         return (*self._start_readback(out), n)
 
     def _dispatch_samples(self, samples: np.ndarray):
-        """Pad an int16 sample block to a bucketed length and enqueue one
-        packed device program and its readback (non-blocking). Bucket lengths are expressed in
-        frames (the same ``TPU_STREAM_BUCKETS`` set as the frames layout);
-        a bucket of B frames is ``(B+1)*hop`` samples."""
+        """Enqueue one packed device program on an int16 sample block of
+        whole frames and its readback (non-blocking), with the VAD order of
+        the block's bucket (in frames, the same ``TPU_STREAM_BUCKETS`` set
+        as the frames layout), as :meth:`_dispatch`."""
         n = 1 + (len(samples) - self.frame_size) // self.hop_size
         bucket = self._bucket_for(n)
-        blen = (bucket - 1) * self.hop_size + self.frame_size
-        true_len = len(samples)
-        if blen != true_len:
-            samples = np.pad(samples, (0, blen - true_len))
         if self._pitch_enabled:
             out, self._vad_state_packed = (
                 self.pipeline.process_signal_packed_pitch(
-                    samples, self._vad_state_packed, true_len,
-                    self._pitch_min_conf,
+                    samples, self._vad_state_packed, len(samples),
+                    self._pitch_min_conf, route_frames=bucket,
                 )
             )
         else:
             out, self._vad_state_packed = self.pipeline.process_signal_packed(
-                samples, self._vad_state_packed, true_len
+                samples, self._vad_state_packed, len(samples),
+                route_frames=bucket,
             )
         self.dispatch_count += 1
         return (*self._start_readback(out), n)
@@ -542,8 +541,7 @@ class AudioRuntime:
 
         def dispatch_split(payload, n, inflight):
             """Dispatch ``payload`` in <=max_bucket-frame slices, keeping
-            exactly one block in flight (shape set stays fixed; pipelining
-            preserved). In low-latency mode nothing stays in flight: results
+            exactly one block in flight (pipelining preserved). In low-latency mode nothing stays in flight: results
             are fetched as soon as each block is enqueued. In samples mode
             consecutive slices share the frame-overlap samples."""
             for lo in range(0, n, max_bucket):

@@ -6,11 +6,12 @@ All requests share ONE ``FeaturePipeline`` on one device (the card unless
 ``--device`` says otherwise) and the per-request state is purely
 functional, so a stdlib threaded HTTP server in front of the pipeline is all
 the machinery a single-card deployment needs: each request thread launches
-the kernels on the device's current stream, where they queue. Inputs pad to
-``FeaturePipeline.SIGNAL_BUCKET_SECONDS`` buckets as in the JAX package
-(causal features: tail padding is sliced off exactly), and the largest
-bucket caps a request's duration. Requests, routes, status codes and error
-messages are the JAX server's.
+the kernels on the device's current stream, where they queue. Each request
+runs at its own length (the JAX server pads it to a
+``FeaturePipeline.SIGNAL_BUCKET_SECONDS`` bucket, which here sets only the
+VAD's summation order); the largest bucket caps a request's duration and
+the buckets are the warm-up's sizes. Requests, routes, status codes and
+error messages are the JAX server's.
 
 Endpoints
 ---------
@@ -23,8 +24,8 @@ Endpoints
 - ``POST /v1/stream``     -> STREAMING: chunked raw int16 PCM at the model
   rate in, chunked NDJSON out — one line per processed frame block as it
   lands (``FeaturePipeline.stream`` semantics: carried overlap tail +
-  VadState, engine bucket shapes, so results are bit-identical to the
-  offline pipeline under any chunking). ``?mfcc=1`` adds MFCC rows.
+  VadState, blocks split at the top engine bucket, so results are
+  bit-identical to the offline pipeline under any chunking). ``?mfcc=1`` adds MFCC rows.
   Long-running clients should read the response concurrently with sending
   (results stream back while audio is still arriving); a send-everything-
   then-read client is fine up to OS socket-buffer scale.

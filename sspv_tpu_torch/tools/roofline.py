@@ -181,24 +181,32 @@ def _pitch_work(cfg, frames: int) -> tuple:
             frames * (2 * rfft_ops(n_acf) + rest(n_acf)), nbytes, smem)
 
 
-def _vad_work(cfg, frames: int) -> tuple:
+def _vad_work(cfg, frames: int, blocked: bool = True) -> tuple:
     """K4's ``(least fp64 ops, design fp64 ops, bytes, shared-memory
-    bytes)`` on one row of ``frames`` frames."""
+    bytes)`` on one row of ``frames`` frames, with the blocked or the
+    direct window sums."""
     h = cfg.history_len
     # per frame and stream: a running window sum (an add and a subtract),
     # the mean, the blend (two multiplies and an add) and the clamp; the
     # margin once
     least = frames * (2 * 6 + 1)
-    # the design sums each window whole: H adds a frame and stream
-    design = frames * (2 * (h + 4) + 1)
     # e, z, h in and the two int32 decisions out; the state in and out
     nbytes = frames * (3 * 4 + 2 * 4) + 2 * (2 * 4 * h + 2 * 4)
-    # each thread reads its two windows from the block's staged values
-    smem = frames * 2 * 4 * h
+    if blocked:
+        # per frame and stream: one add of each block scan and their sum;
+        # shared memory: the staged float, the two scans' reads (floats) and
+        # writes (doubles), the frame's two reads (doubles)
+        design = frames * (2 * (3 + 4) + 1)
+        smem = frames * 2 * (4 + 2 * 4 + 2 * 8 + 2 * 8)
+    else:
+        # each window summed whole (H adds a frame and stream); a thread's
+        # 4 windows share the loads of H + 3 staged floats
+        design = frames * (2 * (h + 4) + 1)
+        smem = frames * 2 * (4 + (h + 3) + 2 * 8)
     return least, design, nbytes, smem
 
 
-def kernel_bound(kernel: str, cfg, frames: int) -> dict:
+def kernel_bound(kernel: str, cfg, frames: int, blocked: bool = True) -> dict:
     """The bounds of one kernel (``view_features`` K1 and ``view_pitch`` K2
     on the rows view of ``frames`` frames, ``frame_features`` K3 on
     ``frames`` formed frames, ``vad`` K4 on one row of ``frames`` frames)
@@ -210,8 +218,9 @@ def kernel_bound(kernel: str, cfg, frames: int) -> dict:
     weights, the VAD's window sums as running sums. ``design_bound_ms`` is
     the ceiling of the kernel's own design: the FFTs at the kernel's
     transform size (K2's power of two against the least size the ACF
-    needs), K4's windows summed whole, or the shared-memory traffic of
-    their stages and tail rows (K4's window reads), whichever takes
+    needs), K4's block scans (``blocked``, the order of the long calls) or
+    its windows summed whole, or the shared-memory traffic of their stages
+    and tail rows (K4's staged values, scans and sums), whichever takes
     longer."""
     peak = FP32_OPS_PER_S
     if kernel == "view_features":
@@ -225,7 +234,7 @@ def kernel_bound(kernel: str, cfg, frames: int) -> dict:
     elif kernel == "view_pitch":
         ops, design_ops, nbytes, smem = _pitch_work(cfg, frames)
     elif kernel == "vad":
-        ops, design_ops, nbytes, smem = _vad_work(cfg, frames)
+        ops, design_ops, nbytes, smem = _vad_work(cfg, frames, blocked)
         peak = FP64_OPS_PER_S
     else:
         raise ValueError(f"no kernel {kernel!r}")
@@ -300,9 +309,8 @@ class Programs:
         self.feats = pipe._features_from_rows(rows)
         self.f0c = fused_view_pitch(rows, **k2)
         # the frames each kernel row's call gives its kernel: the VAD runs
-        # once over the features padded to a multiple of history_len
-        self.kernel_frames = {"view_features": n, "view_pitch": n,
-                              "vad": -(-n // c.history_len) * c.history_len}
+        # once over the call's frames (in the blocked order)
+        self.kernel_frames = {"view_features": n, "view_pitch": n, "vad": n}
 
         def r3():
             st, blocks = state0, []

@@ -6,8 +6,9 @@ through ``ops/vad_kernels.fused_streaming_vad``); its plain version is
 tensor ops (``ops/vad.py``). K4 and the plain version's pieces are timed
 alone, each at two shapes: the original's block (F = 32,768 frames,
 history H = 256) and the hour's full-length call (the 359,999 frames of
-3,600 s at 320/160, which ``_vad_full_length`` pads to 360,192, a multiple
-of H):
+3,600 s at 320/160, which the JAX package's full-length pass pads to
+360,192, a multiple of H; the port's pipeline runs the 359,999 in the
+blocked order and pads nothing):
 
   direct            the shipped window sums: ``unfold`` then ``sum``, float64
   blocked           ``_blocked_trailing_sums``, two-level block cumsums, float64
@@ -60,8 +61,8 @@ GATES = dict(energy_threshold=1e9, zcr_threshold=0.3, entropy_voice_max=0.6,
 
 
 def padded(frames: int, history: int = HISTORY) -> int:
-    """``frames`` rounded up to a multiple of ``history``, as
-    ``FeaturePipeline._vad_full_length`` pads them."""
+    """``frames`` rounded up to a multiple of ``history``, as the JAX
+    package's full-length VAD pass pads them."""
     return -(-frames // history) * history
 
 
@@ -200,7 +201,8 @@ def main(argv=None) -> int:
                     default=[BLOCK_FRAMES, HOUR_FRAMES],
                     help="frame counts (default: the block and the hour; "
                          "each is padded to a multiple of 256 and the "
-                         "padding masked, as _vad_full_length does)")
+                         "padding masked, as the JAX package's full-length "
+                         "VAD pass does)")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     for frames in args.frames:

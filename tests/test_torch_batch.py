@@ -203,26 +203,28 @@ def test_undecodable_file_yields_error_summary(tmp_path):
 
 
 def test_ragged_tails_share_one_shape(tmp_path, monkeypatch):
-    """Every batch pads to the FULL (mesh-divisible) batch size, so a
-    ragged tail (5 files -> 4 + 1 with batch_size=4) runs the (B, bucket)
-    shape of the full batch, its padding rows at length 0."""
+    """A batch pads only to its longest row and a ragged tail (5 files ->
+    4 + 1 with batch_size=4) has only the rows it needs (one data device
+    here); both take the VAD order of the JAX package's (B, bucket) shape,
+    the 2 s bucket's 199 frames."""
     from sspv_tpu_torch.parallel import BatchPipeline
 
     for k in range(5):
         _write_wav(tmp_path / f"t{k}.wav", 0.3, 120.0 + 10 * k)
     files = sorted(str(p) for p in tmp_path.glob("*.wav"))
     shapes = []
-    real = BatchPipeline.process_batch_masked
+    real = BatchPipeline._exact_batch
 
-    def recording(self, signals, lengths, states=None):
-        shapes.append((signals.shape, tuple(int(x) for x in lengths)))
-        return real(self, signals, lengths, states)
+    def recording(self, signals, lengths, route_frames, band=None, **kw):
+        shapes.append((signals.shape, tuple(int(x) for x in lengths),
+                       route_frames))
+        return real(self, signals, lengths, route_frames, band, **kw)
 
-    monkeypatch.setattr(BatchPipeline, "process_batch_masked", recording)
+    monkeypatch.setattr(BatchPipeline, "_exact_batch", recording)
     summaries = process_corpus(files, out_dir=None, batch_size=4)
     assert all("error" not in s and s["frames"] > 0 for s in summaries)
-    assert [s for s, _ in shapes] == [(4, 2 * SR)] * 2
-    assert shapes[1][1][1:] == (0, 0, 0)
+    n = int(0.3 * SR)
+    assert shapes == [((4, n), (n,) * 4, 199), ((1, n), (n,), 199)]
 
 
 def test_oversized_files_take_the_single_file_path(tmp_path, monkeypatch):

@@ -835,6 +835,44 @@ def test_vad_kernel_matches_plain_on_cuda(b, f, impl, mask):
               None if valid is None else valid[0], **kw)
 
 
+VAD_LENGTH_CARD_CASES = [
+    (b, f, kind, route)
+    for b, f in [(1, 255), (3, 1000), (8, 4097), (1, 359_999)]
+    for kind in ("int", "rows")
+    for route in ("blocked", "direct")
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f,kind,route", VAD_LENGTH_CARD_CASES,
+                         ids=["-".join(map(str, c))
+                              for c in VAD_LENGTH_CARD_CASES])
+def test_vad_kernel_lengths_on_cuda(b, f, kind, route):
+    """K4's lengths path: ragged rows (one length for all, or an int32 per
+    row on the card), the blocked order asked for at a frame count that is
+    no multiple of the history and the direct order, twice (the state
+    carried): EQUAL to the plain version, on the route asked for."""
+    from sspv_tpu_torch.ops.vad_kernels import plain_streaming_vad
+
+    dev = _device("cuda")
+    e, z, h, state = vad_inputs.vad_rows(b, f, seed=b * 3 + f, device=dev)
+    rng = np.random.default_rng(f)
+    lengths = f - 3 if kind == "int" else torch.tensor(
+        ([0, f, f // 2] + list(rng.integers(1, f, b)))[:b],
+        dtype=torch.int32, device=dev)
+    rf = -(-f // 256) * 256 + (0 if route == "blocked" else 1)
+    kw = dict(vad_inputs.GATES, trailing_impl="blocked", lengths=lengths,
+              route_frames=rf)
+    for _ in range(2):
+        before = _build.ROUTES["vad_" + route]
+        got = vad_kernels.fused_streaming_vad(e, z, h, state, **kw)
+        assert _build.ROUTES["vad_" + route] == before + 1
+        want = plain_streaming_vad(e, z, h, state, **kw)
+        torch.cuda.synchronize(dev)
+        _vad_same(got, want)
+        state, e = got[2], e.flip(-1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("impl", ["conv", "blocked"])
 @pytest.mark.parametrize("tie", sorted(vad_inputs.TIES))

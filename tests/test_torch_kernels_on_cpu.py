@@ -452,19 +452,109 @@ def test_vad_kernel_on_cpu_takes_every_knob(lib, knobs):
 
 
 def test_vad_entry_point_refuses_what_it_does_not_take(lib):
-    """Blocked sums of a frame count that is no multiple of the history, a
-    mask without its counts, no frame, no row."""
+    """A mask without its counts, no frame, no row, a history whose staged
+    windows do not fit a block's shared memory. Blocked sums of a frame
+    count that is no multiple of the history run (a ragged last block)."""
     z = torch.zeros(4096)
     i = torch.zeros(4096, dtype=torch.int32)
     p, q = z.data_ptr(), i.data_ptr()
 
-    def call(rows, f, hl, flags, valid=None, n_valid=None):
+    def call(rows, f, hl, flags, valid=None, n_valid=None, n_len=None):
         return lib.sspv_streaming_vad(
-            p, p, p, valid, n_valid, p, p, q, q, rows, f, hl, 1.0, 0.3, 0.6,
-            0.5, 0.5, 1e-6, 0.5, 1.0, flags, 5, q, q, q, p, p, q, q, None)
+            p, p, p, valid, n_valid, f if n_len is None else n_len, p, p, q,
+            q, rows, f, hl, 1.0, 0.3, 0.6, 0.5, 0.5, 1e-6, 0.5, 1.0, flags, 5,
+            q, q, q, p, p, q, q, None)
 
     assert call(1, 100, 64, 0) == 0
-    assert call(1, 100, 64, 4) != 0
-    assert call(1, 128, 64, 4) == 0
+    assert call(1, 100, 64, 4) == 0
+    assert call(1, 128, 64, 4, n_len=37) == 0
     assert call(1, 100, 64, 0, valid=p) != 0
     assert call(1, 0, 64, 0) != 0 and call(0, 100, 64, 0) != 0
+    assert call(1, 100, 40_000, 0) != 0
+
+
+# (history_len, rows, frames) for the per-block scans: one frame a block, a
+# block that does not divide the 256-frame tile, the default, a block longer
+# than a tile; frames never a multiple of the history (a ragged last block)
+SCAN_CASES = [(1, 2, 300), (7, 3, 300), (256, 3, 700), (300, 2, 700)]
+
+
+def _row_lengths(kind: str, b: int, f: int, seed: int):
+    """Every row's valid frames: all of them ("none": no lengths), one int
+    for all ("int"), or an int32 per row ("rows": 0 and f among them)."""
+    if kind == "none":
+        return None
+    if kind == "int":
+        return f - 3
+    rng = np.random.default_rng(seed)
+    n = ([0, f, f // 2] + list(rng.integers(1, f, b)))[:b]
+    return torch.tensor(n, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("route", ["blocked", "direct"])
+@pytest.mark.parametrize("kind", ["none", "int", "rows"])
+@pytest.mark.parametrize("hl,b,f", SCAN_CASES,
+                         ids=["-".join(map(str, c)) for c in SCAN_CASES])
+def test_vad_kernel_on_cpu_lengths_and_block_scans(lib, hl, b, f, kind, route):
+    """K4's lengths path and its per-block scans: rows of ragged lengths
+    (one for all, or one each), the blocked order asked for at a frame
+    count that is no multiple of the history, then a second call on the
+    state the first left. Decisions, adaptive decisions and the state
+    EQUAL to the plain version (which pads to a multiple of the history
+    under the mask the lengths stand for), and each row equal to its own
+    1-D call at its exact length."""
+    e, z, h, state = vad_rows(b, f, seed=hl * 10 + f, history_len=hl)
+    lengths = _row_lengths(kind, b, f, seed=hl)
+    # the padded call's frame count: a multiple of the history, or (where
+    # the history is longer than one frame) not; at H = 1 the direct order
+    # is the "conv" configuration's
+    rf = -(-f // hl) * hl + (0 if route == "blocked" or hl == 1 else 1)
+    impl = "conv" if route == "direct" and hl == 1 else "blocked"
+    kw = dict(GATES_K4, trailing_impl=impl, history_len=hl, route_frames=rf)
+
+    def both(e, z, h, state, lengths):
+        err, got_route, got = vk4.launch(lib, e, z, h, state, None,
+                                         lengths=lengths, **kw)
+        assert err == 0
+        assert got_route == ("vad_" + route if e.shape[-1] else None)
+        want = vk4.plain_streaming_vad(e, z, h, state, lengths=lengths, **kw)
+        for g, w in zip(got[:2], want[:2]):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
+        for name, g, w in zip(tvad.VadState._fields, got[2], want[2]):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g, w), name
+        return got
+
+    _, _, state2 = both(e, z, h, state, lengths)
+    got = both(e.flip(-1), z, h, state2, lengths)
+    ns = ([f] * b if lengths is None else [lengths] * b
+          if isinstance(lengths, int) else lengths.tolist())
+    for r, n in enumerate(ns):
+        one = both(e[r].flip(-1)[:n].contiguous(), z[r, :n].contiguous(),
+                   h[r, :n].contiguous(), tvad.unstack_states(state2)[r], None)
+        assert torch.equal(one[0], got[0][r, :n])
+        assert torch.equal(one[1], got[1][r, :n])
+        for a, b_ in zip(one[2], tvad.unstack_states(got[2])[r]):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("impl", ["conv", "blocked"])
+@pytest.mark.parametrize("tie", ["zcr_tie", "energy_tie", "full_history_tie"])
+def test_vad_kernel_on_cpu_decides_ties_at_exact_length(lib, tie, impl):
+    """The float32 threshold ties again, at an exact length of 300 frames
+    with the order of a padded call of 512 (blocked where the
+    configuration asks for it) and with lengths in place of the mask: the
+    engine oracle's decisions."""
+    e, z, h = (x[:300] for x in vad_inputs.TIES[tie]())
+    kw = dict(vad_inputs.GATES, trailing_impl=impl, route_frames=512)
+    init = tvad.initial_vad_state(device=CPU)
+    err, _, got = vk4.launch(lib, _t(e), _t(z), _t(h), init, None,
+                             lengths=300, **kw)
+    assert err == 0
+    want = vk4.plain_streaming_vad(_t(e), _t(z), _t(h), init, lengths=300,
+                                   **kw)
+    for g, w in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        assert torch.equal(g, w)
+    want_v, want_a = oracle.EngineVadOracle().run_all(e, z, h)
+    np.testing.assert_array_equal(got[0].numpy(), want_v)
+    np.testing.assert_array_equal(got[1].numpy(), want_a)

@@ -163,9 +163,9 @@ def test_roofline_programs_on_the_cpu():
     assert analytic["feat_only"] == roofline.kernel_bound(
         "view_features", FeatureConfig(), 1199)
     assert analytic["pitch_kernel_only"]["kernel"] == "view_pitch"
-    # the VAD's one call runs over the features padded to 1,280 frames
+    # the VAD's one call runs over the signal's own 1,199 frames
     assert analytic["vad_only"] == roofline.kernel_bound(
-        "vad", FeatureConfig(), 1280)
+        "vad", FeatureConfig(), 1199)
 
 
 def test_roofline_programs_compute_the_shipped_outputs():
@@ -310,10 +310,9 @@ HOUR_BOUNDS = {
     "view_features": ((0.087, "operations"), (0.295, "shared memory")),
     "view_pitch": ((0.171, "operations"), (1.020, "shared memory")),
     "frame_features": ((0.179, "bytes"), (0.295, "shared memory")),
-    "vad": ((0.002, "bytes"), (0.022, "shared memory")),
+    "vad": ((0.002, "bytes"), (0.002, "bytes")),
 }
-# K4 runs once over the hour's features padded to a multiple of 256
-HOUR_FRAMES = {"frame_features": 359_998, "vad": 360_192}
+HOUR_FRAMES = {"frame_features": 359_998}
 
 
 @pytest.mark.parametrize("kernel", sorted(HOUR_BOUNDS))
@@ -336,12 +335,20 @@ def test_kernel_bound_takes_no_unknown_kernel():
 
 def test_kernel_bound_of_the_vad_counts_bytes_and_float64_sums():
     """K4's bound: 20 bytes a frame (e, z, h in, two int32 decisions out)
-    plus the state; its design: 2 x 256 float64 adds a frame, and the
-    window reads from shared memory, which bound it."""
+    plus the state. Its design with the blocked sums: three float64 adds a
+    frame and stream (one of each block scan, their sum) and 44 bytes of
+    shared memory a frame and stream, so the bytes bound it too; with the
+    direct sums: 256 adds a frame and stream, and the staged reads (4
+    windows a thread share them) bound it."""
     b = roofline.kernel_bound("vad", FeatureConfig(), 1000)
     assert b["bytes"] == 1000 * 20 + 2 * (2 * 4 * 256 + 8)
-    assert b["design_ops"] >= 1000 * 2 * 256 > b["ops"]
-    assert b["smem_bytes"] == 1000 * 2 * 4 * 256
+    assert b["design_ops"] == 1000 * (2 * (3 + 4) + 1)
+    assert b["smem_bytes"] == 1000 * 2 * 44
     assert b["bound_ms"] == pytest.approx(1e3 * b["bytes"] / 3.35e12)
-    assert b["design_bound_ms"] == pytest.approx(
-        1e3 * b["smem_bytes"] / roofline.SMEM_BYTES_PER_S)
+    assert b["design_bound_ms"] == b["bound_ms"]
+    d = roofline.kernel_bound("vad", FeatureConfig(), 1000, blocked=False)
+    assert d["bytes"] == b["bytes"] and d["ops"] == b["ops"]
+    assert d["design_ops"] >= 1000 * 2 * 256 > d["ops"]
+    assert d["smem_bytes"] == 1000 * 2 * (4 + 259 + 16)
+    assert d["design_bound_ms"] == pytest.approx(
+        1e3 * d["smem_bytes"] / roofline.SMEM_BYTES_PER_S)
