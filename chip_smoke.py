@@ -11,9 +11,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    view kernels K1/K2 on random rows of 1 to 100 000 frames, the frames
    kernel K3 on random frames of 1 to 100 000 rows at frame 320 and 400,
    with a Hann window and with a separate 1024-point entropy spectrum
-   (its FFT route), and with an odd and a non-power-of-two ``n_fft`` (its
-   dense route), and each again on its main path's own input, the engine's
-   blocks included (zcr exactly equal, energy/entropy/mfcc
+   (its FFT route), and with an odd and a non-power-of-two ``n_fft``,
+   Whisper's framing (``n_fft`` 400, Hann, 80 mel bands) and frames of
+   1,030 and 1,600 samples at ``n_fft`` 512 (its dense route: the DFT pair
+   on the tensor cores in 3xTF32), and each again on its main path's own
+   input, the engine's blocks included (zcr exactly equal, energy/entropy/mfcc
    and pitch confidence NMSE <= 1e-9, F0 equal on >= 99.9 % of frames);
    then K4, the VAD kernel (``vad_kernel_runs``), on random rows of 1 to
    400,000 frames and on eight rows at 4,096 frames and at 2,048 s, each
@@ -70,6 +72,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    to the same call on the CPU; and at 320/160 with ``n_fft`` 640 (even, no
    power of two: a view geometry K1's FFT does not serve) the same call
    takes K3's dense route for the features and K2 for the pitch;
+   then ``dense_runs``: K3's dense route on the hour at Whisper's framing
+   (400/160, ``n_fft`` 400, Hann, 80 mel bands), at 320/160 with ``n_fft``
+   640 and at 400/160 with the 512-point bases sent without their
+   ``n_fft`` (the dense route where the FFT route would serve), each held
+   to its plain version on the hour's frames and timed (CUDA events,
+   median of 20) beside the plain version, one fp32 cuBLAS product of the
+   frames with ``[wc | ws]`` (the spectrum stage alone, never called by the
+   port) and, with ``--parent DIR`` (an earlier checkout), the SIMT kernel
+   it replaced, built from DIR in the same run, with
+   ``roofline.kernel_bound``'s two bounds; then Whisper's framing as a
+   path: features+VAD on the hour (one dense K3 launch and one K4 launch
+   with the counts reset before it; its time) and
+   ``process_signal_pitch_auto`` on the clip against the same call on the
+   CPU (ZCR and VAD equal, the rest NMSE <= 1e-9);
 8. runs the corpus CLI's ``process_corpus`` (batch 8) over 44 WAV files of
    1.5 s to 600 s cut from the same audio (every length bucket) and one
    2,100 s file (the oversized branch), once without and once with pitch,
@@ -218,16 +234,44 @@ CHECK_SECONDS = 600
 CLIP_SECONDS = 37
 KERNEL_SIZES = (1, 17, 1023, 1025, 100_000)
 FRAME_KERNEL_SIZES = (1, 7, 8, 255, 257, 100_000)
-# K3 cases: (frame_size, window, entropy_n_fft, n_fft, the route it takes)
-FRAME_KERNEL_CASES = ((320, "hamming", 512, 512, "fft"),
-                      (400, "hamming", 512, 512, "fft"),
-                      (400, "hanning", 512, 512, "fft"),
-                      (400, "hamming", 1024, 512, "fft"),
-                      (400, "hamming", 511, 511, "dense"),
-                      (400, "hamming", 480, 480, "dense"))
+# K3 cases: (frame_size, window, entropy_n_fft, n_fft, the route it takes,
+# mel bands): its dense route at an odd n_fft, a non-power-of-two one,
+# Whisper's framing, a frame longer than n_fft (one-float loads) and one
+# staged in chunks (1600 samples)
+FRAME_KERNEL_CASES = ((320, "hamming", 512, 512, "fft", 26),
+                      (400, "hamming", 512, 512, "fft", 26),
+                      (400, "hanning", 512, 512, "fft", 26),
+                      (400, "hamming", 1024, 512, "fft", 26),
+                      (400, "hamming", 511, 511, "dense", 26),
+                      (400, "hamming", 480, 480, "dense", 26),
+                      (400, "hanning", 400, 400, "dense", 80),
+                      (1030, "hamming", 512, 512, "dense", 26),
+                      (1600, "hamming", 512, 512, "dense", 26))
 ASR_FRAME, HOP = 400, 160  # the offline frames path's 25 ms / 10 ms framing
 GAP_FRAME, GAP_HOP = 322, 161  # a view geometry with one-float loads (hop % 4)
 GAP_N_FFT = 640  # a view geometry K1 does not take: even, no power of two
+# K3's dense route on the hour: (label, FeatureConfig keywords, whether the
+# pipeline's own bases are sent without their n_fft, which forces the dense
+# route where the FFT route would serve them). The first is the route's
+# path: Whisper's and torchaudio MelSpectrogram's framing.
+WHISPER = dict(frame_size=400, hop_size=160, n_fft=400, entropy_n_fft=400,
+               window_type="hanning", num_filters=80)
+DENSE_GEOMETRIES = (
+    ("400/160 n_fft=400 hann 80 mel", WHISPER, False),
+    (f"320/160 n_fft={GAP_N_FFT}", dict(n_fft=GAP_N_FFT,
+                                        entropy_n_fft=GAP_N_FFT), False),
+    ("400/160 n_fft=512 bases unvouched", dict(frame_size=400, hop_size=160),
+     True),
+)
+DENSE_REPS = 10  # CUDA-event samples per turn, two turns a run
+# synth_signal's voiced half-seconds are pure tones with no noise under
+# them; a Hann window leaves the high mel bands of such frames below fp32
+# rounding of the DFT, where any two fp32 implementations disagree (cuBLAS
+# and the CPU alike). The Hann geometry is held to the gates on the same
+# audio with a noise floor kept under the tones (FLOOR_RMS, synth_signal's
+# own level) and, on the pure tones, against a float64 plain version beside
+# fp32's.
+FLOOR_RMS = 40.0
 ENGINE_SECONDS = 600
 PITCH_ENGINE_SECONDS = 30
 LONG_SHARDS = (1, 4)  # process_long's meshes: one card, the card four times
@@ -450,7 +494,8 @@ def frame_pipes(device) -> dict:
     return {
         case: FeaturePipeline(FeatureConfig(
             frame_size=case[0], hop_size=HOP, window_type=case[1],
-            entropy_n_fft=case[2], n_fft=case[3]), device=device)
+            entropy_n_fft=case[2], n_fft=case[3], num_filters=case[5]),
+            device=device)
         for case in FRAME_KERNEL_CASES
     }
 
@@ -458,12 +503,15 @@ def frame_pipes(device) -> dict:
 def compare_frame_kernel(consts: dict, frames_list, err: dict,
                          label: str, route: str = "fft") -> None:
     """K3 against its plain version on the same frames (tensors on the
-    card), through the route the geometry must take."""
+    card), through the route the geometry must take (``err`` keeps each
+    route's largest difference apart)."""
     from sspv_tpu_torch.ops import ROUTES
 
+    key = "frame_features_dense" if route == "dense" else "frame_features"
     for frames in frames_list:
         before = dict(ROUTES)
-        zcr_equal, e = feature_parity("frame_features", frames, consts, err)
+        zcr_equal, e = feature_parity("frame_features", frames, consts, err,
+                                      key)
         require(ROUTES["frame_features_" + route] == before[
             "frame_features_" + route] + 1, f"K3 took its {route} route "
             f"({label})")
@@ -1207,7 +1255,8 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                                    "frame_features": 1, "vad": 1}
             and run640["routes"]["frame_features_dense"] == 1,
             f"{label640}: K3 (dense route) for the features, K2 for the pitch")
-    calls_parity("frame_features", run640["calls"][0], err, label640)
+    calls_parity("frame_features", run640["calls"][0], err, label640,
+                 "frame_features_dense")
 
     rows = torch.from_numpy(pipe.host_rows_view(sig)).to(device)
     runs = {"view_features": lambda: vk.fused_view_features(rows, **feat),
@@ -1222,6 +1271,283 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
     print(f"K1 and K2 at {label}, {rows.shape[0] - 1} frames: median "
           f"device ms of 10 calls on {card}: " + json.dumps(ms))
     return {"launches": launches, "ms": ms}
+
+
+def floored(sig: np.ndarray, seed: int = 1) -> np.ndarray:
+    """``sig`` with a noise floor of ``FLOOR_RMS`` under every sample."""
+    rng = np.random.default_rng(seed)
+    return (sig + rng.normal(0, FLOOR_RMS, sig.size)).astype(np.float32)
+
+
+def float64_accuracy(frames, consts: dict, got: dict, label: str) -> dict:
+    """The kernel's outputs ``got`` and the fp32 plain version's against
+    the plain version in float64 on the same frames: ``{field: [kernel
+    NMSE, fp32 plain NMSE]}``."""
+    import torch
+
+    from sspv_tpu_torch.ops import frame_kernels as fk
+
+    f64 = {k: (v.double() if isinstance(v, torch.Tensor) else v)
+           for k, v in consts.items() if k != "dense_bases"}
+    exact = fk.frame_features_plain(frames.double(), **f64)
+    fp32 = fk.frame_features_plain(frames, **consts)
+    out = {k: [nmse(host(got[k]), host(exact[k])),
+               nmse(host(fp32[k]), host(exact[k]))]
+           for k in ("energy", "entropy", "mfcc")}
+    print(f"{label}: NMSE against float64 (3xTF32 kernel, fp32 plain): "
+          + json.dumps(out))
+    # 3xTF32 carries each product to within 3 * 2^-22 of it (the roundings
+    # of a's and b's lo parts and the dropped a_lo b_lo) where fp32 rounds
+    # the running sum to 2^-24: at most 12 times the error, 144 times the
+    # squared error
+    require(all(k <= 144 * p for k, p in out.values()),
+            f"{label}: the kernel within 144x the fp32 NMSE against float64")
+    return out
+
+
+def parent_library(parent: Path):
+    """The kernel library of an earlier checkout at ``parent``, built from
+    its sources with this checkout's nvcc flags into its
+    ``build/parent_kernels``: K1's, K2's and K3's FFT route's entry points
+    declared as this checkout's, and ``sspv_frame_features``, the SIMT
+    DFT-pair kernel that K3's tensor-core dense kernel replaced."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sspv_tpu_torch.ops import _build
+
+    csrc = parent / "sspv_tpu_torch" / "csrc"
+    out = parent / "build" / "parent_kernels"
+    out.mkdir(parents=True, exist_ok=True)
+    units = sorted(csrc.glob("*.cu"))
+    nvcc = _build._nvcc()
+
+    def run(cmd):
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        require(res.returncode == 0, f"parent build: {res.stderr[-2000:]}")
+
+    objects = [str(out / (u.stem + ".o")) for u in units]
+    with ThreadPoolExecutor(len(units)) as pool:
+        list(pool.map(lambda uo: run([nvcc, *_build.NVCC_FLAGS, "-c",
+                                      str(uo[0]), "-o", uo[1]]),
+                      zip(units, objects)))
+    so = out / "libparent_kernels.so"
+    run([nvcc, "-shared", "-o", str(so), *objects])
+    lib = ctypes.CDLL(str(so))
+    here = _build.library()
+    for name in ("sspv_view_features", "sspv_view_pitch",
+                 "sspv_frame_features_fft", "sspv_error_string"):
+        getattr(lib, name).argtypes = getattr(here, name).argtypes
+        getattr(lib, name).restype = getattr(here, name).restype
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sspv_frame_features.argtypes = [p, i, i, p, p, p, i, p, i, p, p, i,
+                                        f, i, p, p, p, p, p]
+    lib.sspv_frame_features.restype = i
+    return lib
+
+
+@contextlib.contextmanager
+def parent_kernels(lib):
+    """The port's wrappers launch ``lib``'s kernels inside the block."""
+    from sspv_tpu_torch.ops import _build
+
+    here = _build.library()
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = here
+
+
+def parent_ab(lib, pipe, rows, pipe400, frames, card: str) -> dict:
+    """K1, K2 and K3's FFT route of this checkout against an earlier one's
+    (``parent_library``) on the main paths' inputs: outputs bit for bit
+    equal, and medians of 20 timed calls each in turns (parent, change,
+    change, parent)."""
+    import torch
+
+    from sspv_tpu_torch.ops import frame_kernels as fk
+    from sspv_tpu_torch.ops import view_kernels as vk
+
+    pk = pitch_kernel_kwargs(pipe)
+    runs = {"view_features": lambda: vk.fused_view_features(
+                rows, **pipe._view_consts),
+            "view_pitch": lambda: vk.fused_view_pitch(rows, **pk),
+            "frame_features": lambda: fk.fused_features(
+                frames, **pipe400._frame_consts)}
+    out = {}
+    for name, fn in runs.items():
+        got = fn()
+        with parent_kernels(lib):
+            want = fn()
+        got = got.values() if isinstance(got, dict) else got
+        want = want.values() if isinstance(want, dict) else want
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        samples = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            with (parent_kernels(lib) if who == "parent"
+                  else contextlib.nullcontext()):
+                samples[who] += time_ms(fn, DENSE_REPS)
+        out[name] = {"bit_identical": same,
+                     **{k: float(np.median(v)) for k, v in samples.items()}}
+        require(same, f"{name}: outputs bit-identical to the parent's")
+    print(f"K1, K2, K3 FFT route against the parent's on {card}: "
+          + json.dumps(out))
+    return out
+
+
+def dense_runs(device, sig: np.ndarray, err: dict, card: str,
+               parent_lib=None) -> dict:
+    """K3's dense route (the DFT pair on the tensor cores in 3xTF32) on the
+    hour at ``DENSE_GEOMETRIES``: held to its plain version on the hour's
+    frames, then timed (CUDA events, median of 20) beside the plain
+    version, one fp32 cuBLAS product of the frames with ``[wc | ws]`` (the
+    spectrum stage alone, which the port never calls; TF32 off) and, with
+    ``parent_lib`` (``parent_library``), the SIMT kernel it replaced, built
+    from an earlier checkout in this run (turns: parent, kernel, kernel,
+    parent), with both bounds of
+    ``roofline.kernel_bound``. The Hann geometry runs on ``floored`` audio,
+    and on the pure tones its kernel and fp32 plain outputs are set beside
+    a float64 plain version's (``float64_accuracy``). Then its path,
+    Whisper's framing: the frames path's features+VAD on the hour (counts
+    reset before it: one dense K3 launch, one K4 launch) and
+    ``process_signal_pitch_auto`` on the clip against the same call on the
+    CPU (ZCR and VAD equal, the rest NMSE <= ``NMSE_KERNEL``)."""
+    import torch
+
+    from sspv_tpu_torch import FeatureConfig, FeaturePipeline
+    from sspv_tpu_torch.ops import LAUNCHES, ROUTES
+    from sspv_tpu_torch.ops import frame_kernels as fk
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.tools.roofline import TF32_OPS_PER_S, kernel_bound
+
+    old = parent_lib.sspv_frame_features if parent_lib is not None else None
+    sig_t = torch.from_numpy(sig).to(device)
+    floor_t = torch.from_numpy(floored(sig)).to(device)
+    geometries = {}
+    for label, geometry, unvouched in DENSE_GEOMETRIES:
+        cfg = FeatureConfig(**geometry)
+        pipe = FeaturePipeline(cfg, device=device)
+        hann = cfg.window_type == "hanning"
+        frames = pipe._device_stream_frames(floor_t if hann else sig_t)
+        consts = dict(pipe._frame_consts)
+        if unvouched:
+            consts.update(n_fft=None, dense_bases=fk.pack_dense_bases(
+                consts["wc"], consts["ws"]))
+        n, frame = frames.shape
+        n_bins = consts["fb_t"].shape[0]
+        require(fk.kernel_route(frame, n_bins, consts["n_fft"]) == "dense",
+                f"{label} takes K3's dense route")
+        before = ROUTES["frame_features_dense"]
+        zcr_equal, e = feature_parity("frame_features", frames, consts, err,
+                                      "frame_features_dense")
+        print(f"K3 dense vs plain {label} F={n}: zcr_equal={zcr_equal} "
+              f"nmse=" + json.dumps(e))
+        require(ROUTES["frame_features_dense"] == before + 1,
+                f"{label}: one dense launch")
+        require(zcr_equal and max(e.values()) <= NMSE_KERNEL,
+                f"K3 dense {label}: zcr {zcr_equal}, nmse {e}")
+        accuracy = None
+        if hann:
+            pure = pipe._device_stream_frames(sig_t)
+            accuracy = float64_accuracy(
+                pure, consts, fk.fused_features(pure, **consts),
+                f"K3 dense {label} on the pure tones")
+            del pure
+
+        pair = torch.cat([consts["wc"], consts["ws"]], dim=1)
+        runs = {"kernel": lambda: fk.fused_features(frames, **consts),
+                "plain": lambda: fk.frame_features_plain(frames, **consts),
+                "library": lambda: frames @ pair}
+        if old is not None:
+            out = [torch.empty(n, device=device) for _ in range(3)]
+            mfcc = torch.empty((n, consts["dct"].shape[1]), device=device)
+
+            def parent_call():
+                c = consts
+                code = old(frames.data_ptr(), n, frame,
+                           c["window"].data_ptr(), c["wc"].data_ptr(),
+                           c["ws"].data_ptr(), n_bins, c["fb_t"].data_ptr(),
+                           c["fb_t"].shape[1], c["dct"].data_ptr(),
+                           c["lifter"].data_ptr(), c["dct"].shape[1],
+                           float(np.float32(np.log(n_bins))), 1,
+                           *(t.data_ptr() for t in out), mfcc.data_ptr(),
+                           torch.cuda.current_stream(device).cuda_stream)
+                require(code == 0, f"parent kernel launch: CUDA error {code}")
+
+            runs["parent"] = parent_call
+            parent_call()
+            want = fk.frame_features_plain(frames, **consts)
+            parent_nmse = nmse(host(mfcc), host(want["mfcc"]))
+            print(f"parent SIMT kernel {label}: mfcc nmse vs plain "
+                  f"{parent_nmse}")
+            require(parent_nmse <= NMSE_KERNEL, f"parent kernel {label}")
+            del want
+        allow = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        samples = {k: [] for k in runs}
+        for a, b in ((("parent" if old is not None else "plain"), "kernel"),
+                     ("plain", "library")):
+            for name in (a, b, b, a):
+                samples[name] += time_ms(runs[name], DENSE_REPS)
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        ms = {k: float(np.median(v)) for k, v in samples.items()}
+        b = kernel_bound("frame_features", cfg, n, route="dense")
+        geometries[label] = {
+            "frames": n, "launches": 1, "ms": ms["kernel"],
+            "parent_ms": ms.get("parent"), "plain_ms": ms["plain"],
+            "library_ms": ms["library"], "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "design_bound_ms": b["design_bound_ms"],
+            "design_bound_by": b["design_bound_by"],
+            "tf32_bound_ms": 1e3 * b["design_ops"] / TF32_OPS_PER_S,
+            "plan": list(fk.dense_plan(frame, n_bins, n)),
+            "pure_tone_nmse_vs_float64": accuracy,
+            "spread_ms": [float(min(samples["kernel"])),
+                          float(max(samples["kernel"]))]}
+        print(f"K3 dense {label}, {n} frames, on {card}: "
+              + json.dumps(geometries[label]))
+        del frames, runs, pair
+
+    # the route's path: Whisper's framing
+    label = DENSE_GEOMETRIES[0][0]
+    cfg = FeatureConfig(**WHISPER)
+    pipe = FeaturePipeline(cfg, device=device)
+    with recording_vad() as vad_calls:
+        sync(device)
+        reset_launches()
+        block, _ = pipe.process_signal_device(floor_t)
+        sync(device)
+        launches, routes = dict(LAUNCHES), dict(ROUTES)
+    print(f"{label} frames path on the hour: launches " + json.dumps(launches)
+          + " K3 routes " + json.dumps(routes))
+    require(launches == {"view_features": 0, "view_pitch": 0,
+                         "frame_features": 1, "vad": 1}
+            and routes["frame_features_dense"] == 1,
+            f"{label}: one dense K3 launch and one K4 launch")
+    vad_calls_parity(vad_calls, err, label, expected=1)
+    n = 1 + (len(sig) - cfg.frame_size) // cfg.hop_size
+    require(block.energy.shape == (n,) and block.mfcc.shape == (n, 13),
+            f"{label} shapes")
+    for k in ("energy", "zcr", "entropy", "mfcc"):
+        require(bool(torch.isfinite(getattr(block, k)).all()),
+                f"{label} {k} finite")
+    path_ms = float(np.median(time_ms(
+        lambda: pipe.process_signal_device(floor_t), DENSE_REPS)))
+    audio_s = len(sig) / SR
+    print(f"{label} frames-path features+VAD on the hour: {path_ms:.3f} ms "
+          f"({audio_s / path_ms * 1e3:.1f} audio-s/s) on {card}")
+    clip = host(floor_t[: CLIP_SECONDS * SR])
+    run = clip_against_cpu(pipe, cfg, clip, label,
+                           [[(pipeline_mod, "fused_features")]])
+    require(run["launches"]["frame_features"] > 0
+            and run["routes"]["frame_features_dense"]
+            == run["launches"]["frame_features"]
+            and run["launches"]["view_features"] == 0,
+            f"{label}: the clip's features through K3's dense route")
+    calls_parity("frame_features", run["calls"][0], err, label,
+                 "frame_features_dense")
+    return {"launches": launches, "geometries": geometries,
+            "path_ms": path_ms}
 
 
 def wav_bytes(pcm: np.ndarray, rate: int = SR, channels: int = 1) -> bytes:
@@ -3063,9 +3389,16 @@ def kernel_bounds(pipe, rows, pipe400, frames) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an earlier checkout: time its dense K3 kernel "
+                    "beside this one's (dense_runs)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -3091,7 +3424,8 @@ def main() -> int:
 
     pipe = FeaturePipeline(device=device)
     err = {"view_features": 0.0, "view_pitch": 0.0, "frame_features": 0.0,
-           "long_kernel_feats": 0.0, "long_kernel_pitch": 0.0, "vad": 0.0}
+           "frame_features_dense": 0.0, "long_kernel_feats": 0.0,
+           "long_kernel_pitch": 0.0, "vad": 0.0}
     compare_kernels(pipe, random_rows(device, KERNEL_SIZES), err)
     check_zero_frames(pipe, device)
     for i, (case, fpipe) in enumerate(frame_pipes(device).items()):
@@ -3113,6 +3447,12 @@ def main() -> int:
     engine = engine_runs(device, main["signal"], err, card)
     long_run = long_runs(pipe, device, main["rows"], err)
     gap_runs(device, main["signal"], err, card)
+    parent_lib = (parent_library(args.parent.resolve())
+                  if args.parent is not None else None)
+    dense = dense_runs(device, main["signal"], err, card, parent_lib)
+    if parent_lib is not None:
+        parent_ab(parent_lib, pipe, main["rows"], pipe400,
+                  frames_run["frames"], card)
     corpus_runs(device, main["signal"], err, card)
     l1_runs(device, main["signal"], pipe400, frames_run, card)
 
@@ -3183,6 +3523,21 @@ def main() -> int:
         "bound_ms": bounds["vad"][0][0], "bound_by": bounds["vad"][0][1],
         "library_ms": None, "cummax_library_ms": ms["vad_cummax_library"],
         "device_ms": k4_device_ms(traces.get("vad"))})
+    # K3's dense route, a kernel of its own in frame_features.cu; its path
+    # is Whisper's framing (dense_runs), its library call the spectrum stage
+    # alone as one fp32 cuBLAS product, which the port never calls
+    path = dense["geometries"][DENSE_GEOMETRIES[0][0]]
+    kernels.append({
+        "name": "frame_features_dense", "route": "cuda",
+        "source": "sspv_tpu_torch/csrc/frame_features.cu",
+        "replaces": "sspv_tpu/ops/pallas_kernels.py:43",
+        "launches": dense["launches"]["frame_features"],
+        "max_abs_err": err["frame_features_dense"], "ms": path["ms"],
+        "plain_ms": path["plain_ms"], "bound_ms": path["bound_ms"],
+        "bound_by": path["bound_by"], "library_ms": path["library_ms"],
+        "parent_ms": path["parent_ms"],
+        "design_bound_ms": path["design_bound_ms"],
+        "geometries": dense["geometries"]})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@
 // independent rows here, not the overlapping rows view of K1. Only energy,
 // zcr, entropy (F,) and mfcc (F, num_ceps) reach device memory.
 //
-// Two kernels, chosen by the wrapper from the geometry alone:
+// Two kernels, chosen by the wrapper from the geometry alone
+// (`frame_kernels.kernel_route`):
 //
 // 1. `sspv_frame_features_fft`, the main route: the spectrum is the real FFT
 //    (fft.cuh) of the windowed frame at N = n_fft, a power of two in
@@ -34,266 +35,393 @@
 //    shared with K1) sums each mel filter over its nonzero bins only (ranges
 //    from the host), about 2 * n_bins multiply-adds per frame instead of
 //    n_bins * num_filters.
-// 2. `sspv_frame_features`, the dense route for every other geometry
-//    (arbitrary bases, an odd or non-power-of-two n_fft, n_fft outside
-//    256..2048, a frame longer than n_fft): the power from the windowed DFT
-//    pair re = x . wc[:, k], im = x . ws[:, k] as fp32 FMAs.
-//    What bounds it: the DFT pair, 2 * 2 * frame * n_bins flop per frame
-//    (0.41 MFLOP at 400 x 257), outside the tensor cores (67 TFLOP/s peak).
-//    What the design does about it: 32 frames per block and one thread per
-//    bin for the bins that fill whole warps, each thread with re/im
-//    accumulators for all 32 frames in registers: every basis element read
-//    (coalesced across the warp, L2 resident across blocks) feeds 32 FMAs,
-//    and the samples are 16-byte shared-memory broadcasts. The bins past the
-//    last whole warp are warp dot products. 256 threads and at most 128
-//    registers a thread keep two blocks on every SM. Frames are staged in
-//    chunks of at most kChunk samples, so any frame size fits in shared
-//    memory.
+// 2. `sspv_frame_features_dense`, the dense route for every other geometry
+//    (bases the pipeline did not build, an odd or non-power-of-two n_fft,
+//    n_fft outside 256..2048, a frame longer than n_fft): the DFT pair as one
+//    tensor-core product, frames (F, frame) x bases (frame, 2 n_bins), whose
+//    columns interleave (wc_k, ws_k), in 3xTF32: a_lo b_hi + a_hi b_lo +
+//    a_hi b_hi into fp32 accumulators, hi = tf32(v), lo = tf32(v - hi): each
+//    product to within 3 * 2^-22 of it (two roundings of lo and the dropped
+//    a_lo b_lo) where fp32 rounds to 2^-24, so about fp32's accuracy; no
+//    single-pass TF32, no bf16. The frames are split here as they are
+//    read; the bases once, on the host, and packed in fragment order
+//    (`frame_kernels.pack_dense_bases`).
+//    What bounds it on the H100: the product, 2 * frame * 2 n_bins flop per
+//    frame three times (1.93 MFLOP at 400 x 201 bins), at the 495 TFLOP/s
+//    TF32 peak (0.70 ms per hour of audio at 400/160, n_fft 400), well
+//    above the frames' bytes (0.17 ms); mma.sync reaches part of that peak.
+//    What the design does about it: blocks of 32 frames (16 for at most 16
+//    frames or where 32 power rows do not fit), 8 warps, two blocks an SM,
+//    so one block's staging and tail overlap the other's product; each warp
+//    computes every frame of the block against 4 of the 32 n8 column tiles
+//    of a step (strided, so a short last step spreads over the warps; a
+//    warp with none left skips it), with m16n8k8 mma.sync (mma_tf32.cuh).
+//    The block's frames sit in shared memory (cp.async, 16 bytes a lane
+//    where the frame allows), all of their samples where they fit, else in
+//    chunks staged again for each step. The bases (1.6 MB at 400 x 402,
+//    resident in L2 across blocks; hi and lo in fragment order, one
+//    coalesced 16-byte load a lane per 8 x 8 tile) go straight from L2 into
+//    registers two 8-sample steps ahead, with no branch and no block
+//    barrier in the product's loop. Within each step the mma's k = t and
+//    t + 4 are samples 2t and 2t + 1, one 8-byte load. The accumulator
+//    gives each lane re_k and im_k of one bin and frame in (d0, d1) and
+//    (d2, d3), so the power is formed in registers and only the power row
+//    reaches shared memory.
+//    Energy and ZCR come from the staged samples; the tail is
+//    spectral_tail.cuh's, over the mel ranges from the host, which cover
+//    every nonzero weight of any filterbank. On the card (PERF.md) the
+//    loop's loads, splits and addressing and mma.sync's rate, not the bytes,
+//    hold it at 5x the TF32 bound: a wgmma design is the next step.
 // Everything is IEEE fp32 (no fast-math): logf, the divisions and the
 // entropy's x log x match the PyTorch version to rounding.
 
+#include <type_traits>
+
 #include "fft.cuh"
+#include "mma_tf32.cuh"
 #include "spectral_tail.cuh"
 #include "view_common.cuh"
 
+// -- the dense route ----------------------------------------------------------
+
 namespace {
 
-constexpr int kThreads = 256;
-// Samples of every frame staged in shared memory at a time: 32 x 512 floats
-// (64 KiB) at most, whatever the frame size.
-constexpr int kChunk = 512;
-using sspv::kBlockFrames;
+constexpr int kDenseWarps = 8;
+constexpr int kTilesPerWarp = 4;  // n8 tiles a warp computes in a full step
+constexpr int kStepTiles = kDenseWarps * kTilesPerWarp;  // 256 columns
+constexpr int kMaxFilters = 256;  // the tail's log-mel rows: 8 KiB
+constexpr int kDenseSmemBytes = 232448;  // what a block may use
 
-__global__ void __launch_bounds__(kThreads, 2) frame_features_kernel(
-    const float* __restrict__ frames, int n_frames, int frame,
-    const float* __restrict__ window, const float* __restrict__ wc,
-    const float* __restrict__ ws, int n_bins,
-    const float* __restrict__ fb_t, int num_filters,
-    const float* __restrict__ dct, const float* __restrict__ lifter,
-    int num_ceps, float log_bins, int compute_entropy,
-    float* __restrict__ energy, float* __restrict__ zcr,
-    float* __restrict__ entropy, float* __restrict__ mfcc) {
+// Floats between two frames' rows of the staged samples (8-byte fragment
+// loads of 16 lanes hit 32 distinct banks: a stride of 8 or 24 mod 32) and
+// of the power rows.
+__host__ __device__ constexpr int dense_sample_stride(int chunk) {
+  return ((chunk + 15) & ~15) + 8;
+}
+__host__ __device__ constexpr int dense_power_stride(int n_bins) {
+  return (sspv::round4(n_bins) & 7) ? sspv::round4(n_bins)
+                                    : sspv::round4(n_bins) + 4;
+}
+// Per frame its power row, its staged samples, 32 lanes' energy sums and
+// its sign-change count; then each warp's log-mel row.
+__host__ __device__ constexpr size_t dense_smem_bytes(int block_frames,
+                                                      int n_bins, int chunk) {
+  return sizeof(float) *
+         ((size_t)block_frames * (dense_power_stride(n_bins) +
+                                  dense_sample_stride(chunk) + 32 + 1) +
+          (size_t)kDenseWarps * kMaxFilters);
+}
+
+// Two adjacent staged samples, one 8-byte shared-memory load.
+struct alignas(8) SamplePair {
+  float even, odd;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#elif !defined(__CUDACC__)
+  std::memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#elif !defined(__CUDACC__)
+  *dst = *src;
+#endif
+}
+
+// Wait for this thread's copies (done at once in the CPU emulation).
+__device__ __forceinline__ void cp_async_wait_all() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// Samples [k0, k0 + klen) of the block's frames into `tile` (rows of
+// `stride` floats), zeros past the frame and for rows past `nb`.
+__device__ __forceinline__ void stage_frames(float* tile, int stride,
+                                             const float* block_frames,
+                                             int frame, int nb, int rows,
+                                             int k0, int klen, bool vec) {
+  if (vec) {
+    const int quads = klen / 4;
+    for (int i = threadIdx.x; i < rows * quads; i += blockDim.x) {
+      const int f = i / quads;
+      const int s = 4 * (i - f * quads);
+      float* dst = tile + f * stride + s;
+      if (f < nb && k0 + s < frame)
+        cp_async16(dst, block_frames + (size_t)f * frame + k0 + s);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < rows * klen; i += blockDim.x) {
+      const int f = i / klen;
+      const int s = i - f * klen;
+      float* dst = tile + f * stride + s;
+      if (f < nb && k0 + s < frame)
+        cp_async4(dst, block_frames + (size_t)f * frame + k0 + s);
+      else
+        *dst = 0.f;
+    }
+  }
+}
+
+// Two blocks an SM (at most 128 registers a thread): one block's tail and
+// staging overlap the other's product.
+template <int MT>
+__global__ void __launch_bounds__(kDenseWarps * 32, 2)
+    frame_features_dense_kernel(
+        const float* __restrict__ frames, int n_frames, int frame,
+        const float* __restrict__ window, const float4* __restrict__ bases,
+        int n_bins, int chunk, int vec, const float* __restrict__ fb_t,
+        const int* __restrict__ mel_ranges, int num_filters,
+        const float* __restrict__ dct, const float* __restrict__ lifter,
+        int num_ceps, float log_bins, int compute_entropy,
+        float* __restrict__ energy, float* __restrict__ zcr,
+        float* __restrict__ entropy, float* __restrict__ mfcc) {
+  constexpr int BM = 16 * MT;  // frames of the block
   extern __shared__ float4 smem4[];
-  const int chunk = min(frame, kChunk);
-  const int tstride = sspv::round4(chunk);
-  const int pstride = sspv::round4(n_bins);
-  const int n_main = n_bins & ~31;  // bins of the thread-per-bin passes
-  const int n_tail = n_bins - n_main;  // < 32 bins: warp dot products
-  float* tile = reinterpret_cast<float*>(smem4);      // (kBlockFrames, tstride)
-  float* power = tile + kBlockFrames * tstride;        // (kBlockFrames, pstride)
-  float* logmel = power + kBlockFrames * pstride;      // (kBlockFrames, filters)
-  float* tail_re = logmel + kBlockFrames * num_filters;  // (kBlockFrames, 32)
-  float* tail_im = tail_re + kBlockFrames * 32;           // (kBlockFrames, 32)
-  float* e_acc = tail_im + kBlockFrames * 32;             // (kBlockFrames,)
-  int* z_acc = reinterpret_cast<int*>(e_acc + kBlockFrames);
+  const int pstride = dense_power_stride(n_bins);
+  const int astride = dense_sample_stride(chunk);
+  float* power = reinterpret_cast<float*>(smem4);  // (BM, pstride)
+  float* tile = power + BM * pstride;              // (BM, astride)
+  float* e_lane = tile + BM * astride;             // (BM, 32)
+  int* z_acc = reinterpret_cast<int*>(e_lane + BM * 32);  // (BM,)
+  float* logmel = e_lane + BM * 33 + (threadIdx.x >> 5) * kMaxFilters;
 
-  const int i0 = blockIdx.x * kBlockFrames;
-  const int nb = min(kBlockFrames, n_frames - i0);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int i0 = blockIdx.x * BM;
+  const int nb = min(BM, n_frames - i0);
   const float* block_frames = frames + (size_t)i0 * frame;
+  const int kp = (frame + 15) & ~15;  // the product's depth, zero-padded
+  const int n_tiles = (2 * n_bins + 7) / 8;
+  const int n_steps = (n_tiles + kStepTiles - 1) / kStepTiles;
+  const int tiles_padded = n_steps * kStepTiles;
+  const int n_chunks = (kp + chunk - 1) / chunk;
 
-  for (int i = threadIdx.x; i < kBlockFrames * 32; i += blockDim.x) {
-    tail_re[i] = 0.f;
-    tail_im[i] = 0.f;
-  }
-  for (int f = threadIdx.x; f < kBlockFrames; f += blockDim.x) {
-    e_acc[f] = 0.f;
-    z_acc[f] = 0;
-  }
+  for (int i = threadIdx.x; i < BM * 32; i += blockDim.x) e_lane[i] = 0.f;
+  for (int f = threadIdx.x; f < BM; f += blockDim.x) z_acc[f] = 0;
 
-  // One pass per blockDim whole-warp bins (one pass unless n_bins > 256 + 31);
-  // the loop bounds are uniform across the block, so every thread meets every
-  // barrier. The first pass also sums energy, ZCR and the tail bins.
-  const int passes = max(1, (n_main + (int)blockDim.x - 1) / (int)blockDim.x);
-  for (int pass = 0; pass < passes; ++pass) {
-    const int k = pass * blockDim.x + threadIdx.x;
-    const bool live = k < n_main;
-    float re[kBlockFrames], im[kBlockFrames];
+  // One column step with NT tiles a warp (4, or fewer in a last step that
+  // fills fewer: no warp computes more padded tiles than a short step
+  // leaves it).
+  auto run_step = [&](int step, auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    // this warp's NT tiles of the step, strided so that a short last step
+    // spreads over the warps; a warp with no live tile skips the step
+    // (warp-uniform), the padded tiles beside a live one are zeros
+    int tile_of[NT];
 #pragma unroll
-    for (int f = 0; f < kBlockFrames; ++f) {
-      re[f] = 0.f;
-      im[f] = 0.f;
-    }
-    for (int t0 = 0; t0 < frame; t0 += chunk) {
-      const int len = min(chunk, frame - t0);
-      __syncthreads();  // the previous chunk's readers are done with the tile
-      for (int i = threadIdx.x; i < kBlockFrames * tstride; i += blockDim.x) {
-        const int f = i / tstride;
-        const int t = i - f * tstride;
-        tile[i] = (f < nb && t < len)
-                      ? __ldg(block_frames + (size_t)f * frame + t0 + t)
-                      : 0.f;
-      }
-      __syncthreads();
+    for (int n = 0; n < NT; ++n)
+      tile_of[n] = step * kStepTiles + warp + kDenseWarps * n;
+    const bool live = tile_of[0] < n_tiles;
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc[m][n][r] = 0.f;
 
-      if (pass == 0) {
-        // Energy and ZCR of this chunk, one warp per frame. The sign change
-        // across the chunk boundary reads the previous sample from memory.
-        for (int f = warp; f < nb; f += nwarps) {
-          const float* x = tile + f * tstride;
-          float e = 0.f;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int k0 = c * chunk;
+      const int klen = min(chunk, kp - k0);  // a multiple of 16
+      if (step == 0 || n_chunks > 1) {
+        __syncthreads();  // the previous chunk's readers are done
+        stage_frames(tile, astride, block_frames, frame, nb, BM, k0, klen,
+                     vec);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      if (step == 0) {
+        // Energy and ZCR of this chunk's samples, one warp per frame. A
+        // lane sums the samples of its residue mod 32 whatever the chunks
+        // (a multiple of 32 where there are several), so a frame's energy
+        // does not depend on the plan; the sign change across a chunk
+        // boundary reads the sample before it from memory.
+        const int len = min(chunk, frame - k0);
+        for (int f = warp; f < nb; f += kDenseWarps) {
+          const float* x = tile + f * astride;
+          float e = e_lane[f * 32 + lane];
           int changes = 0;
-          for (int t = lane; t < len; t += 32) {
-            const float v = x[t] * __ldg(window + t0 + t);
+          for (int s = lane; s < len; s += 32) {
+            const float v = x[s] * __ldg(window + k0 + s);
             e = fmaf(v, v, e);
-            if (t > 0) {
-              const float p = x[t - 1] * __ldg(window + t0 + t - 1);
+            if (s > 0) {
+              const float p = x[s - 1] * __ldg(window + k0 + s - 1);
               changes += sspv::sign_of(v) != sspv::sign_of(p);
-            } else if (t0 > 0) {
-              const float p = __ldg(block_frames + (size_t)f * frame + t0 - 1) *
-                              __ldg(window + t0 - 1);
+            } else if (k0 > 0) {
+              const float p = __ldg(block_frames + (size_t)f * frame + k0 - 1) *
+                              __ldg(window + k0 - 1);
               changes += sspv::sign_of(v) != sspv::sign_of(p);
             }
           }
-          e = sspv::warp_sum(e);
+          e_lane[f * 32 + lane] = e;
           changes = sspv::warp_sum(changes);
-          if (lane == 0) {
-            e_acc[f] += e;
-            z_acc[f] += changes;
-          }
-        }
-        // The tail bins of this chunk, one warp per (frame, bin).
-        for (int p = warp; p < nb * n_tail; p += nwarps) {
-          const int f = p / n_tail;
-          const int j = p - f * n_tail;
-          const float* x = tile + f * tstride;
-          float r = 0.f, q = 0.f;
-          for (int t = lane; t < len; t += 32) {
-            const size_t row = (size_t)(t0 + t) * n_bins + n_main + j;
-            r = fmaf(x[t], __ldg(wc + row), r);
-            q = fmaf(x[t], __ldg(ws + row), q);
-          }
-          r = sspv::warp_sum(r);
-          q = sspv::warp_sum(q);
-          if (lane == 0) {
-            tail_re[f * 32 + j] += r;
-            tail_im[f * 32 + j] += q;
-          }
+          if (lane == 0) z_acc[f] += changes;
         }
       }
+      if (!live) continue;
 
-      if (live) {
-        const float* c_col = wc + k;
-        const float* s_col = ws + k;
-        for (int t = 0; t < len; t += 4) {
-          float c[4], s[4];
+      // The bases' fragments go from L2 to registers two 8-sample steps
+      // ahead, one coalesced 16-byte load a lane and tile, hi and lo
+      // together (the last loads repeat the last step's); no branch and no
+      // block barrier in the loop.
+      const int n_k8 = klen / 8;  // even
+      const size_t kb_stride = (size_t)tiles_padded * 32;
+      const float4* b_at[NT];
+      float4 ahead0[NT], ahead1[NT];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const bool in = t + j < len;  // the tile is zero past len
-            const size_t row = (size_t)(t0 + t + j) * n_bins;
-            c[j] = in ? __ldg(c_col + row) : 0.f;
-            s[j] = in ? __ldg(s_col + row) : 0.f;
+      for (int n = 0; n < NT; ++n) {
+        b_at[n] = bases + (size_t)(k0 / 8) * kb_stride +
+                  (size_t)tile_of[n] * 32 + lane;
+        ahead0[n] = __ldg(b_at[n]);
+        ahead1[n] = __ldg(b_at[n] + kb_stride);
+      }
+      const float* x_at = tile + g * astride + 2 * t;
+      for (int j = 0; j < n_k8; j += 2) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t b_hi[NT][2], b_lo[NT][2];
+          const size_t next = (size_t)min(j + 2 + h, n_k8 - 1) * kb_stride;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const float4 v = h ? ahead1[n] : ahead0[n];
+            b_hi[n][0] = sspv::float_bits(v.x);  // B[t][g]
+            b_hi[n][1] = sspv::float_bits(v.y);  // B[t + 4][g]
+            b_lo[n][0] = sspv::float_bits(v.z);
+            b_lo[n][1] = sspv::float_bits(v.w);
+            (h ? ahead1[n] : ahead0[n]) = __ldg(b_at[n] + next);
           }
+          // the mma's k = t and t + 4 are samples 2t and 2t + 1 of the
+          // 8-sample step (the bases are packed in the same order)
+          const float* x0 = x_at + 8 * (j + h);
 #pragma unroll
-          for (int f = 0; f < kBlockFrames; ++f) {
-            const float4 x =
-                *reinterpret_cast<const float4*>(tile + f * tstride + t);
-            re[f] = fmaf(x.x, c[0], re[f]);
-            re[f] = fmaf(x.y, c[1], re[f]);
-            re[f] = fmaf(x.z, c[2], re[f]);
-            re[f] = fmaf(x.w, c[3], re[f]);
-            im[f] = fmaf(x.x, s[0], im[f]);
-            im[f] = fmaf(x.y, s[1], im[f]);
-            im[f] = fmaf(x.z, s[2], im[f]);
-            im[f] = fmaf(x.w, s[3], im[f]);
+          for (int m = 0; m < MT; ++m) {
+            const SamplePair u = *reinterpret_cast<const SamplePair*>(
+                x0 + 16 * m * astride);
+            const SamplePair w = *reinterpret_cast<const SamplePair*>(
+                x0 + (16 * m + 8) * astride);
+            uint32_t a_hi[4], a_lo[4];
+            sspv::split_tf32(u.even, a_hi[0], a_lo[0]);  // A[g][t]
+            sspv::split_tf32(w.even, a_hi[1], a_lo[1]);  // A[g + 8][t]
+            sspv::split_tf32(u.odd, a_hi[2], a_lo[2]);   // A[g][t + 4]
+            sspv::split_tf32(w.odd, a_hi[3], a_lo[3]);   // A[g + 8][t + 4]
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              sspv::mma_3xtf32_m16n8k8(acc[m][n], a_hi, a_lo, b_hi[n],
+                                       b_lo[n]);
           }
         }
       }
     }
-    if (live) {
+
+    // (d0, d1) = (re, im) of bin 4 tile + t for frame g, (d2, d3) for g + 8
 #pragma unroll
-      for (int f = 0; f < kBlockFrames; ++f)
-        power[f * pstride + k] = re[f] * re[f] + im[f] * im[f];
-    }
-  }
-  __syncthreads();
-
-  for (int p = threadIdx.x; p < nb * n_tail; p += blockDim.x) {
-    const int f = p / n_tail;
-    const int j = p - f * n_tail;
-    const float r = tail_re[f * 32 + j];
-    const float q = tail_im[f * 32 + j];
-    power[f * pstride + n_main + j] = r * r + q * q;
-  }
-  for (int f = threadIdx.x; f < nb; f += blockDim.x) {
-    energy[i0 + f] = e_acc[f];
-    zcr[i0 + f] = (float)z_acc[f] * (1.f / (float)frame);
-  }
-  __syncthreads();
-
-  // Mel filterbank -> clamp -> log, one thread per (frame, filter).
-  for (int o = threadIdx.x; o < nb * num_filters; o += blockDim.x) {
-    const int f = o / num_filters;
-    const int m = o - f * num_filters;
-    const float* p = power + f * pstride;
-    float acc = 0.f;
-    for (int k = 0; k < n_bins; ++k)
-      acc = fmaf(p[k], __ldg(fb_t + k * num_filters + m), acc);
-    logmel[o] = logf(fmaxf(acc, 1e-10f));
-  }
-
-  // Spectral entropy over the n_bins bins, one warp per frame (zeros when
-  // the wrapper computes it from a separate spectrum).
-  for (int f = warp; f < nb; f += nwarps) {
-    const float* p = power + f * pstride;
-    float h = 0.f;
-    if (compute_entropy) {
-      float s = 0.f;
-      for (int k = lane; k < n_bins; k += 32) s += p[k];
-      s = sspv::warp_sum(s);
-      for (int k = lane; k < n_bins; k += 32) {
-        const float pn = fmaxf(s > 0.f ? p[k] / s : 0.f, 1e-12f);
-        h += pn * logf(pn);
+    for (int n = 0; n < NT; ++n) {
+      const int bin = 4 * tile_of[n] + t;
+      if (bin >= n_bins) continue;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const float* d = acc[m][n];
+        float* p = power + (16 * m + g) * pstride + bin;
+        p[0] = d[0] * d[0] + d[1] * d[1];
+        p[8 * pstride] = d[2] * d[2] + d[3] * d[3];
       }
-      h = sspv::warp_sum(h);
     }
-    if (lane == 0) entropy[i0 + f] = compute_entropy ? -h / log_bins : 0.f;
+  };
+  for (int step = 0; step < n_steps; ++step) {
+    const int rest = n_tiles - step * kStepTiles;
+    switch (min(kTilesPerWarp, (rest + kDenseWarps - 1) / kDenseWarps)) {
+      case 4: run_step(step, std::integral_constant<int, 4>{}); break;
+      case 3: run_step(step, std::integral_constant<int, 3>{}); break;
+      case 2: run_step(step, std::integral_constant<int, 2>{}); break;
+      default: run_step(step, std::integral_constant<int, 1>{});
+    }
   }
   __syncthreads();
 
-  // DCT -> lifter, one thread per (frame, coefficient); rows of `mfcc` are
-  // contiguous, so output o of the block lands at (i0, 0) + o.
-  for (int o = threadIdx.x; o < nb * num_ceps; o += blockDim.x) {
-    const int f = o / num_ceps;
-    const int c = o - f * num_ceps;
-    const float* lm = logmel + f * num_filters;
-    float acc = 0.f;
-    for (int m = 0; m < num_filters; ++m)
-      acc = fmaf(lm[m], __ldg(dct + m * num_ceps + c), acc);
-    mfcc[(size_t)i0 * num_ceps + o] = acc * __ldg(lifter + c);
+  for (int f = warp; f < nb; f += kDenseWarps) {
+    const float e = sspv::warp_sum(e_lane[f * 32 + lane]);
+    if (lane == 0) {
+      energy[i0 + f] = e;
+      zcr[i0 + f] = (float)z_acc[f] * (1.f / (float)frame);
+    }
   }
+  // The tail, one warp per frame.
+  for (int f = warp; f < nb; f += kDenseWarps)
+    sspv::spectral_tail(n_bins, power + f * pstride, logmel, fb_t, mel_ranges,
+                        num_filters, dct, lifter, num_ceps, log_bins,
+                        compute_entropy, lane, entropy + i0 + f,
+                        mfcc + (size_t)(i0 + f) * num_ceps);
+}
+
+template <int MT>
+int launch_dense_route(const float* frames, int n_frames, int frame,
+                       const float* window, const float* bases, int n_bins,
+                       int chunk, const float* fb_t, const int* mel_ranges,
+                       int num_filters, const float* dct, const float* lifter,
+                       int num_ceps, float log_bins, int compute_entropy,
+                       float* energy, float* zcr, float* entropy, float* mfcc,
+                       cudaStream_t stream) {
+  const size_t smem = dense_smem_bytes(16 * MT, n_bins, chunk);
+  auto kernel = frame_features_dense_kernel<MT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = frame % 4 == 0 && sspv::fft::aligned16(frames);
+  const int blocks = (n_frames + 16 * MT - 1) / (16 * MT);
+  kernel<<<blocks, kDenseWarps * 32, smem, stream>>>(
+      frames, n_frames, frame, window,
+      reinterpret_cast<const float4*>(bases), n_bins, chunk, vec, fb_t,
+      mel_ranges, num_filters, dct, lifter, num_ceps, log_bins,
+      compute_entropy, energy, zcr, entropy, mfcc);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-static size_t frame_features_smem(int frame, int n_bins, int num_filters) {
-  const int chunk = frame < kChunk ? frame : kChunk;
-  return sizeof(float) * ((size_t)kBlockFrames * sspv::round4(chunk) +
-                          (size_t)kBlockFrames * sspv::round4(n_bins) +
-                          (size_t)kBlockFrames * num_filters +
-                          2 * (size_t)kBlockFrames * 32 +
-                          2 * (size_t)kBlockFrames);
-}
-
-// Returns the CUDA error of the launch (0 on success).
-extern "C" int sspv_frame_features(
+// The dense route. `bases` is `frame_kernels.pack_dense_bases(wc, ws)` for
+// this frame size and n_bins; `block_frames` (32 or 16) and `chunk`
+// (samples staged at a time, a multiple of 16) are
+// `frame_kernels.dense_plan`'s; `mel_ranges` as for the FFT route. Returns
+// the CUDA error of the launch (0 on success, cudaErrorInvalidValue for a
+// plan that does not fit a block's shared memory or more than 256 mel
+// bands).
+extern "C" int sspv_frame_features_dense(
     const float* frames, int n_frames, int frame, const float* window,
-    const float* wc, const float* ws, int n_bins, const float* fb_t,
-    int num_filters, const float* dct, const float* lifter, int num_ceps,
-    float log_bins, int compute_entropy, float* energy, float* zcr,
-    float* entropy, float* mfcc, void* stream) {
-  const size_t smem = frame_features_smem(frame, n_bins, num_filters);
-  cudaError_t err = cudaFuncSetAttribute(
-      frame_features_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n_frames + kBlockFrames - 1) / kBlockFrames;
-  frame_features_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      frames, n_frames, frame, window, wc, ws, n_bins, fb_t, num_filters, dct,
-      lifter, num_ceps, log_bins, compute_entropy, energy, zcr, entropy, mfcc);
-  return (int)cudaGetLastError();
+    const float* bases, int n_bins, int block_frames, int chunk,
+    const float* fb_t, const int* mel_ranges, int num_filters,
+    const float* dct, const float* lifter, int num_ceps, float log_bins,
+    int compute_entropy, float* energy, float* zcr, float* entropy,
+    float* mfcc, void* stream) {
+  if (chunk <= 0 || chunk % 16 != 0 || n_bins <= 0 ||
+      num_filters > kMaxFilters ||
+      dense_smem_bytes(block_frames, n_bins, chunk) > kDenseSmemBytes)
+    return (int)cudaErrorInvalidValue;
+#define SSPV_DENSE_ROUTE(MT)                                                 \
+  case 16 * MT:                                                              \
+    return launch_dense_route<MT>(                                           \
+        frames, n_frames, frame, window, bases, n_bins, chunk, fb_t,         \
+        mel_ranges, num_filters, dct, lifter, num_ceps, log_bins,            \
+        compute_entropy, energy, zcr, entropy, mfcc, (cudaStream_t)stream);
+  switch (block_frames) {
+    SSPV_DENSE_ROUTE(1)
+    SSPV_DENSE_ROUTE(2)
+  }
+#undef SSPV_DENSE_ROUTE
+  return (int)cudaErrorInvalidValue;
 }
 
 // -- the FFT route ------------------------------------------------------------

@@ -1,19 +1,14 @@
 // Device code shared by the kernels: the small helpers every kernel uses
-// (round4, warp_sum, sign_of) and the block size of K3's dense route. The
-// view kernels (view_features.cu, view_pitch.cu) read a frame's 2 * hop
-// samples straight from the (n_frames + 1, hop) rows view, where frame i is
-// rows[i] || rows[i + 1] and its samples lie side by side; the 2x-overlapping
-// frame matrix is never formed anywhere.
+// (round4, warp_sum, sign_of). The view kernels (view_features.cu,
+// view_pitch.cu) read a frame's 2 * hop samples straight from the
+// (n_frames + 1, hop) rows view, where frame i is rows[i] || rows[i + 1] and
+// its samples lie side by side; the 2x-overlapping frame matrix is never
+// formed anywhere.
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace sspv {
-
-// Frames per thread block of K3's dense route. Each thread of its DFT stage
-// keeps a cos and a sin accumulator for every frame of the block in registers
-// (2 * 32 of them).
-constexpr int kBlockFrames = 32;
 
 __host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
 

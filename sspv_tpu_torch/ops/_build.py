@@ -42,8 +42,8 @@ NVCC_FLAGS = (
 LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0,
             "vad": 0}
 # Launches of K3 by route ("fft": the shared-memory FFT kernel, "dense": the
-# DFT-pair kernel); they add up to LAUNCHES["frame_features"]. K4's window
-# sums ("direct" or "blocked") add up to LAUNCHES["vad"].
+# DFT pair on the tensor cores); they add up to LAUNCHES["frame_features"].
+# K4's window sums ("direct" or "blocked") add up to LAUNCHES["vad"].
 ROUTES = {"frame_features_fft": 0, "frame_features_dense": 0,
           "vad_direct": 0, "vad_blocked": 0}
 # Guards both dicts: threads of one server launch the kernels concurrently,
@@ -109,10 +109,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sspv_view_features.restype = i
     lib.sspv_view_pitch.argtypes = [p, i, i, p, i, i, i, f, p, p, p]
     lib.sspv_view_pitch.restype = i
-    lib.sspv_frame_features.argtypes = [
-        p, i, i, p, p, p, i, p, i, p, p, i, f, i, p, p, p, p, p,
+    lib.sspv_frame_features_dense.argtypes = [
+        p, i, i, p, p, i, i, i, p, p, i, p, p, i, f, i, p, p, p, p, p,
     ]
-    lib.sspv_frame_features.restype = i
+    lib.sspv_frame_features_dense.restype = i
     lib.sspv_frame_features_fft.argtypes = [
         p, i, i, p, p, i, p, p, i, p, p, i, f, i, p, p, p, p, p,
     ]

@@ -48,7 +48,8 @@ import torch
 
 from . import bases, fft_tables
 from . import vad as vad_ops
-from .frame_kernels import fused_features
+from .frame_kernels import (dense_plan, fused_features, pack_dense_bases,
+                            takes_fft_route)
 from .pitch import _lag_band, acf_bases, pitch_track_gated, pitch_track_signal_gated
 from .preprocessing import frame_signal, stream_frames
 from .vad_kernels import fused_streaming_vad
@@ -262,12 +263,21 @@ class FeaturePipeline:
         mel_ranges = torch.from_numpy(fft_tables.mel_ranges(
             self._host_consts["fb_t"])).to(self.device)
         wc, ws = bases.windowed_dft_bases(c.frame_size, c.n_fft, c.window_type)
+        n_fft = c.n_fft if self._loaded_equal(wc=wc, ws=ws) else None
+        # K3's dense route reads the loaded wc/ws packed (3xTF32 halves, in
+        # fragment order); built here once for each set of bases it serves,
+        # from their host copies
+        frame, n_bins = self._wc.shape
+        dense_bases = None
+        if (not takes_fft_route(frame, n_bins, n_fft)
+                and dense_plan(frame, n_bins) is not None):
+            dense_bases = pack_dense_bases(
+                self._host_consts["wc"], self._host_consts["ws"]).to(self.device)
         self._frame_consts = dict(
             window=self._window, wc=self._wc, ws=self._ws, fb_t=self._fb_t,
             dct=self._dct, lifter=self._lifter,
             entropy_bases=(self._wc_ent, self._ws_ent),
-            n_fft=c.n_fft if self._loaded_equal(wc=wc, ws=ws) else None,
-            mel_ranges=mel_ranges,
+            n_fft=n_fft, mel_ranges=mel_ranges, dense_bases=dense_bases,
         )
         self._view_consts = None
         # K1 takes the view geometry only without _view_unsupported's gaps

@@ -67,9 +67,10 @@ from .length_probe import make_signal, pipelined
 
 # The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, at
 # its full 700 W): fp32 and fp64 operations outside the tensor cores (a
-# multiply-add counts 2), device memory.
+# multiply-add counts 2), TF32 on the tensor cores (dense), device memory.
 FP32_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 33.5e12
+TF32_OPS_PER_S = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # Shared memory: 128 bytes per clock and SM, 132 SMs, 1.98 GHz boost clock.
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
@@ -130,9 +131,13 @@ def _mel_nnz(cfg) -> int:
     return int((np.asarray(fb, np.float32) != 0).sum())
 
 
-def _features_work(cfg, frames: int, input_floats: int) -> tuple:
+def _features_work(cfg, frames: int, input_floats: int,
+                   route: str = "fft") -> tuple:
     """K1's or K3's ``(ops, bytes, shared-memory bytes)`` on ``frames``
-    frames read from ``input_floats`` floats of input."""
+    frames read from ``input_floats`` floats of input, through the FFT
+    route (K1, K3's FFT kernel) or K3's dense route. The operations are the
+    function's least at any ``n_fft`` (a real FFT of n_fft points); the
+    bytes and the shared-memory traffic are the route's."""
     from ..ops import fft_tables
 
     fr, bins = cfg.frame_size, cfg.n_fft // 2 + 1
@@ -142,18 +147,54 @@ def _features_work(cfg, frames: int, input_floats: int) -> tuple:
     tail = 3 * bins + 2 * nnz + nf + 2 * nf * nc + nc + 5 * bins
     # window, energy, sign changes
     ops = frames * (rfft_ops(cfg.n_fft) + 3 * fr + tail)
-    # the kernel reads its input, the window, its twiddle table, the
-    # filterbank with its ranges and the cepstral constants, and writes
-    # energy, zcr, entropy and the cepstra
+    # the kernel reads its input, the window, its twiddle table (the FFT
+    # route) or the packed bases (the dense route), the filterbank with its
+    # ranges and the cepstral constants, and writes energy, zcr, entropy and
+    # the cepstra
+    spectrum = (fft_tables.twiddle_table(cfg.n_fft).size if route == "fft"
+                else _dense_bases_floats(fr, bins))
     nbytes = (4 * input_floats
-              + 4 * (fr + fft_tables.twiddle_table(cfg.n_fft).size
-                     + bins * nf + 2 * nf + nf * nc + nc)
+              + 4 * (fr + spectrum + bins * nf + 2 * nf + nf * nc + nc)
               + frames * 4 * (3 + nc))
-    # the FFT, the power row out, the ranged mel sum, the log-mel row, the
-    # entropy's two passes, the DCT
-    smem = frames * 4 * (rfft_smem_floats(cfg.n_fft) + bins + nnz + nf
-                         + 2 * bins + nf * nc)
+    # the power row out, the ranged mel sum, the log-mel row, the entropy's
+    # two passes, the DCT; before them the FFT, or the dense route's
+    # product
+    tail_smem = bins + nnz + nf + 2 * bins + nf * nc
+    if route == "fft":
+        smem = frames * 4 * (rfft_smem_floats(cfg.n_fft) + tail_smem)
+    else:
+        smem = frames * 4 * tail_smem + _dense_product_smem(fr, bins, frames)
     return ops, nbytes, smem
+
+
+def _dense_bases_floats(frame: int, n_bins: int) -> int:
+    """Floats of K3's packed dense bases (``pack_dense_bases``)."""
+    from ..ops import frame_kernels as fk
+
+    tiles = -(-(-(-2 * n_bins // 8)) // fk.DENSE_STEP_TILES) \
+        * fk.DENSE_STEP_TILES
+    return -(-frame // fk.DENSE_DEPTH) * fk.DENSE_DEPTH * 8 * tiles * 2
+
+
+def dense_product_ops(frame: int, n_bins: int, frames: int) -> float:
+    """The tensor-core operations of K3's dense route: the product of the
+    frames with the interleaved (wc, ws) pair, three times (3xTF32)."""
+    return 3.0 * 2 * frames * frame * 2 * n_bins
+
+
+def _dense_product_smem(frame: int, n_bins: int, frames: int) -> int:
+    """Shared-memory bytes of the dense route's product at its plan: the
+    staged samples written once for each time they are staged and read by
+    energy and ZCR, and every warp's fragment loads of all the block's
+    samples for each column step (the bases go from L2 to registers)."""
+    from ..ops import frame_kernels as fk
+
+    block, chunk = fk.dense_plan(frame, n_bins)
+    kp = -(-frame // fk.DENSE_DEPTH) * fk.DENSE_DEPTH
+    steps = -(-(-(-2 * n_bins // 8)) // fk.DENSE_STEP_TILES)
+    blocks = -(-frames // block)
+    staged = 1 if chunk >= kp else steps
+    return 4 * blocks * block * kp * (staged + 8 * steps) + 4 * frames * frame
 
 
 def _pitch_work(cfg, frames: int) -> tuple:
@@ -206,7 +247,8 @@ def _vad_work(cfg, frames: int, blocked: bool = True) -> tuple:
     return least, design, nbytes, smem
 
 
-def kernel_bound(kernel: str, cfg, frames: int, blocked: bool = True) -> dict:
+def kernel_bound(kernel: str, cfg, frames: int, blocked: bool = True,
+                 route: str | None = None) -> dict:
     """The bounds of one kernel (``view_features`` K1 and ``view_pitch`` K2
     on the rows view of ``frames`` frames, ``frame_features`` K3 on
     ``frames`` formed frames, ``vad`` K4 on one row of ``frames`` frames)
@@ -218,28 +260,41 @@ def kernel_bound(kernel: str, cfg, frames: int, blocked: bool = True) -> dict:
     weights, the VAD's window sums as running sums. ``design_bound_ms`` is
     the ceiling of the kernel's own design: the FFTs at the kernel's
     transform size (K2's power of two against the least size the ACF
-    needs), K4's block scans (``blocked``, the order of the long calls) or
-    its windows summed whole, or the shared-memory traffic of their stages
-    and tail rows (K4's staged values, scans and sums), whichever takes
-    longer."""
-    peak = FP32_OPS_PER_S
+    needs), K3's dense route's 3xTF32 product over the TF32 peak
+    (``design_bound_by`` "TF32 operations"), K4's block scans (``blocked``,
+    the order of the long calls) or its windows summed whole, or the
+    shared-memory traffic of their stages and tail rows (K4's staged
+    values, scans and sums; the dense route's staged samples, fragment
+    loads and bases), whichever takes longer. K3's route is ``route``
+    ("fft" or "dense"), or the one its wrapper takes for the bases ``cfg``
+    builds (``frame_kernels.kernel_route``)."""
+    peak = design_peak = FP32_OPS_PER_S
     if kernel == "view_features":
         ops, nbytes, smem = _features_work(cfg, frames,
                                            (frames + 1) * cfg.hop_size)
         design_ops = ops
     elif kernel == "frame_features":
+        from ..ops.frame_kernels import kernel_route
+
+        bins = cfg.n_fft // 2 + 1
+        route = route or kernel_route(cfg.frame_size, bins, cfg.n_fft)
         ops, nbytes, smem = _features_work(cfg, frames,
-                                           frames * cfg.frame_size)
+                                           frames * cfg.frame_size, route)
         design_ops = ops
+        if route == "dense":
+            design_ops = dense_product_ops(cfg.frame_size, bins, frames)
+            design_peak = TF32_OPS_PER_S
     elif kernel == "view_pitch":
         ops, design_ops, nbytes, smem = _pitch_work(cfg, frames)
     elif kernel == "vad":
         ops, design_ops, nbytes, smem = _vad_work(cfg, frames, blocked)
-        peak = FP64_OPS_PER_S
+        peak = design_peak = FP64_OPS_PER_S
     else:
         raise ValueError(f"no kernel {kernel!r}")
     ms, by = bound(ops, nbytes, peak)
-    design_ms, design_by = bound(design_ops, nbytes, peak)
+    design_ms, design_by = bound(design_ops, nbytes, design_peak)
+    if design_peak == TF32_OPS_PER_S and design_by == "operations":
+        design_by = "TF32 operations"
     smem_ms = 1e3 * smem / SMEM_BYTES_PER_S
     if smem_ms > design_ms:
         design_ms, design_by = smem_ms, "shared memory"

@@ -199,20 +199,21 @@ def test_pitch_kernel_takes_any_hop(n):
 
 
 def _frame_consts(dev, frame: int, window: str = "hamming",
-                  entropy_n_fft: int = 512, n_fft: int = 512) -> dict:
-    """K3's arguments, from a pipeline of that geometry (26 filters, 13
-    cepstra)."""
+                  entropy_n_fft: int = 512, n_fft: int = 512,
+                  num_filters: int = 26) -> dict:
+    """K3's arguments, from a pipeline of that geometry (26 filters unless
+    said, 13 cepstra)."""
     cfg = FeatureConfig(frame_size=frame, window_type=window, n_fft=n_fft,
-                        entropy_n_fft=entropy_n_fft)
+                        entropy_n_fft=entropy_n_fft, num_filters=num_filters)
     return FeaturePipeline(cfg, device=dev)._frame_consts
 
 
-# (frame_size, window, entropy_n_fft, n_fft): the engine's and the ASR front
-# end's framing, a window with zeros, a separate entropy spectrum (all on
-# K3's FFT route at N = 512), a frame longer than n_fft and than the dense
-# kernel's shared-memory chunk with a scalar tail (1030 % 4 == 2; dense
-# route), the FFT route at N = 1024 (513 bins), and the dense route with
-# tail bins only (17 bins).
+# (frame_size, window, entropy_n_fft, n_fft[, num_filters]): the engine's
+# and the ASR front end's framing, a window with zeros, a separate entropy
+# spectrum (all on K3's FFT route at N = 512), a frame longer than n_fft
+# with one-float loads (1030 % 4 == 2; dense route), the FFT route at
+# N = 1024 (513 bins), the dense route with one column tile of 17 bins, and
+# Whisper's framing (a 400-point DFT, Hann, 80 mel bands; dense route).
 K3_CASES = {
     "hamming_320": (320, "hamming", 512, 512),
     "hamming_400": (400, "hamming", 512, 512),
@@ -221,6 +222,7 @@ K3_CASES = {
     "hamming_1030": (1030, "hamming", 512, 512),
     "n_fft_1024": (400, "hamming", 1024, 1024),
     "n_fft_32": (64, "hamming", 32, 32),
+    "whisper_400_of_400": (400, "hanning", 400, 400, 80),
 }
 
 
@@ -230,8 +232,8 @@ K3_CASES = {
 def test_frame_kernel_matches_plain_version(case, n):
     dev = _device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
-    frame, window, ent, n_fft = K3_CASES[case]
-    consts = _frame_consts(dev, frame, window, ent, n_fft)
+    frame, window, ent, n_fft, *nf = K3_CASES[case]
+    consts = _frame_consts(dev, frame, window, ent, n_fft, *nf)
     frames = torch.from_numpy(
         np.random.default_rng(n).normal(0, 1000, (n, frame)).astype(np.float32)
     ).to(dev)
@@ -255,6 +257,8 @@ K3_ROUTES = {
     "dense_odd_n_fft": (400, 511, "dense"),
     "dense_n_fft_480": (400, 480, "dense"),
     "dense_frame_longer_than_n_fft": (1030, 512, "dense"),
+    "dense_n_fft_400": (400, 400, "dense"),
+    "dense_n_fft_640": (320, 640, "dense"),
 }
 
 
@@ -290,6 +294,44 @@ def test_frame_kernel_routes(case):
     assert torch.equal(unvouched["zcr"], want["zcr"])
     for k in ("energy", "entropy", "mfcc"):
         assert _nmse(unvouched[k].cpu(), want[k].cpu()) <= 1e-9, k
+
+
+@pytest.mark.cuda
+def test_dense_route_reads_the_bases_load_constants_brings():
+    """Bases loaded through load_constants (another window folded in) are
+    packed again on the card, and the dense route computes THEIR spectrum:
+    equal to the plain version on the loaded bases, not to the old ones;
+    the pipeline's own bases back restore the FFT route."""
+    dev = _device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = FeaturePipeline(FeatureConfig(frame_size=400, hop_size=160),
+                           device=dev)
+    own = pipe.constants()
+    other = FeaturePipeline(FeatureConfig(frame_size=400, hop_size=160,
+                                          window_type="hanning"),
+                            device="cpu").constants()
+    frames = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 1000, (300, 400)).astype(np.float32)).to(dev)
+    before = fk.fused_features(frames, **pipe._frame_consts)
+    pipe.load_constants({"wc": other["wc"], "ws": other["ws"]})
+    consts = pipe._frame_consts
+    assert consts["n_fft"] is None
+    assert consts["dense_bases"].device == consts["wc"].device
+    assert torch.equal(consts["dense_bases"].cpu(), fk.pack_dense_bases(
+        torch.from_numpy(other["wc"]), torch.from_numpy(other["ws"])))
+    routes = dict(fk.ROUTES)
+    got = fk.fused_features(frames, **consts)
+    torch.cuda.synchronize()
+    assert fk.ROUTES["frame_features_dense"] == \
+        routes["frame_features_dense"] + 1
+    want = fk.frame_features_plain(frames, **consts)
+    assert torch.equal(got["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k].cpu(), want[k].cpu()) <= 1e-9, k
+    assert _nmse(got["mfcc"].cpu(), before["mfcc"].cpu()) > 1e-6
+    pipe.load_constants(own)
+    assert pipe._frame_consts["dense_bases"] is None
+    assert fk.kernel_route(400, 257, pipe._frame_consts["n_fft"]) == "fft"
 
 
 @pytest.mark.cuda

@@ -194,6 +194,9 @@ ROUTE_CASES = {
                                   entropy_n_fft=128), "dense"),
     "n_fft_above_largest": (dict(frame_size=400, hop_size=160, n_fft=4096,
                                  entropy_n_fft=4096), "dense"),
+    "whisper_400_of_400": (dict(frame_size=400, hop_size=160, n_fft=400,
+                                entropy_n_fft=400, window_type="hanning",
+                                num_filters=80), "dense"),
 }
 
 
@@ -242,3 +245,80 @@ def test_cpu_frames_launch_no_kernel_on_either_route():
     assert (dict(fk.LAUNCHES), dict(fk.ROUTES)) == before
     for k in with_fft:  # the plain version reads neither keyword
         assert torch.equal(with_fft[k], without[k])
+
+
+# -- the dense kernel's operand and plan --------------------------------------
+
+
+def test_kernel_route_refuses_what_no_kernel_takes():
+    """Past the dense kernel's plan (the power rows of 16 frames over a
+    block's shared memory: n_fft 8192 has 4,097 bins) kernel_route raises
+    with a message; the CPU pipeline still serves the geometry (its plain
+    version) and builds no packed bases for it."""
+    assert fk.dense_plan(400, 4097) is None
+    with pytest.raises(NotImplementedError, match="4097 bins"):
+        fk.kernel_route(400, 4097, None)
+    tp = TPipeline(TConfig(frame_size=400, hop_size=160, n_fft=8192,
+                           entropy_n_fft=8192), device="cpu")
+    assert tp._frame_consts["dense_bases"] is None
+    out = tp.features(_frames(3, 400, seed=0))
+    assert out["mfcc"].shape == (3, 13)
+
+
+@pytest.mark.parametrize("frame,n_bins", [(400, 201), (401, 256), (64, 17),
+                                          (1030, 257)])
+def test_pack_dense_bases_layout(frame, n_bins):
+    """The packed operand: [kb, tile, 4 g + t] holds (hi, hi, lo, lo) of rows
+    8 kb + 2t and 8 kb + 2t + 1 of column 8 tile + g of the interleaved
+    (wc_k, ws_k) pair, zero past the frame (to a multiple of 16 samples) and
+    past 2 n_bins columns (to a multiple of 256); hi = tf32(b),
+    lo = tf32(b - hi), and hi + lo is b to 2^-22."""
+    rng = np.random.default_rng(frame)
+    wc = rng.normal(0, 1, (frame, n_bins)).astype(np.float32)
+    ws = rng.normal(0, 1, (frame, n_bins)).astype(np.float32)
+    packed = fk.pack_dense_bases(torch.from_numpy(wc), torch.from_numpy(ws))
+    kp = -(-frame // fk.DENSE_DEPTH) * fk.DENSE_DEPTH
+    step = fk.DENSE_STEP_TILES
+    tiles = -(-(-(-2 * n_bins // 8)) // step) * step
+    assert packed.shape == (kp // 8, tiles, 32, 4)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    b = np.zeros((kp, 8 * tiles), np.float32)
+    b[:frame, 0:2 * n_bins:2], b[:frame, 1:2 * n_bins:2] = wc, ws
+    p = packed.numpy()
+    for kb, tile, g, t in [(0, 0, 0, 0), (kp // 8 - 1, tiles - 1, 7, 3),
+                           (kp // 8 // 2, 3, 5, 2)]:
+        rows, col = [8 * kb + 2 * t, 8 * kb + 2 * t + 1], 8 * tile + g
+        hi = fk._tf32(b[rows, col])
+        lo = fk._tf32(b[rows, col] - hi)
+        np.testing.assert_array_equal(p[kb, tile, 4 * g + t], [*hi, *lo])
+    hi, lo = p[..., :2], p[..., 2:]
+    np.testing.assert_array_equal(hi, fk._tf32(hi))  # 13 low bits zero
+    np.testing.assert_array_equal(lo, fk._tf32(lo))
+    whole = (hi.astype(np.float64) + lo).transpose(0, 3, 1, 2).reshape(
+        kp // 8, 2, tiles, 8, 4).transpose(0, 4, 1, 2, 3).reshape(kp, -1)
+    assert np.all(np.abs(whole - b) <= 2.0**-22 * np.abs(b))
+    assert not whole[frame:].any() and not whole[:, 2 * n_bins:].any()
+
+
+def test_pipeline_packs_the_bases_the_dense_route_reads():
+    """The pipeline packs wc/ws once where K3 takes the dense route (none
+    where the FFT route serves the geometry), and packs again when
+    load_constants brings other bases; its own bases back restore the FFT
+    route and drop the pack."""
+    whisper = TPipeline(TConfig(**ROUTE_CASES["whisper_400_of_400"][0]),
+                        device="cpu")
+    consts = whisper._frame_consts
+    assert torch.equal(consts["dense_bases"],
+                       fk.pack_dense_bases(consts["wc"], consts["ws"]))
+    tp = TPipeline(TConfig(frame_size=400, hop_size=160), device="cpu")
+    assert tp._frame_consts["dense_bases"] is None
+    own = tp.constants()
+    other = TPipeline(TConfig(frame_size=400, hop_size=160,
+                              window_type="hanning"), device="cpu").constants()
+    tp.load_constants({"wc": other["wc"], "ws": other["ws"]})
+    packed = tp._frame_consts["dense_bases"]
+    assert torch.equal(packed, fk.pack_dense_bases(
+        torch.from_numpy(other["wc"]), torch.from_numpy(other["ws"])))
+    tp.load_constants(own)
+    assert tp._frame_consts["n_fft"] == 512
+    assert tp._frame_consts["dense_bases"] is None

@@ -4,8 +4,9 @@ geometry the view path does not take (frame != 2*hop, a window with zeros)
 and every entry point that takes raw frames.
 
 Geometries: the 400/160 ASR framing (Hamming), 320/160 with a Hann window
-(zeros at both ends), and 400/160 with a separate 1024-point entropy
-spectrum. Entry points: ``process_block`` (with and without ``valid``),
+(zeros at both ends), 400/160 with a separate 1024-point entropy spectrum,
+and Whisper's framing (400/160, a 400-point DFT, Hann, 80 mel bands).
+Entry points: ``process_block`` (with and without ``valid``),
 ``process_signal`` (``pad_tail`` both ways), ``stream`` with buckets,
 ``process_signal_device`` (exact-length VAD, and the > 32,768-frame branch:
 K3's plain version over all frames, then one full-length VAD),
@@ -36,6 +37,12 @@ GEOMETRIES = {
     "asr_400_160": dict(frame_size=400, hop_size=160),
     "hann_320_160": dict(frame_size=320, hop_size=160, window_type="hanning"),
     "entropy_1024": dict(frame_size=400, hop_size=160, entropy_n_fft=1024),
+    # Whisper's and torchaudio MelSpectrogram's framing: 25 ms / 10 ms, a
+    # 400-point DFT (no power of two: K3's dense route on the card), Hann,
+    # 80 mel bands
+    "whisper_400_160": dict(frame_size=400, hop_size=160, n_fft=400,
+                            entropy_n_fft=400, window_type="hanning",
+                            num_filters=80),
 }
 
 

@@ -87,15 +87,15 @@ def _k3(lib, frames: torch.Tensor, consts: dict, route: str) -> dict:
     out["mfcc"] = torch.full((f, nc), np.nan)
     if route == "fft":
         n_fft = consts["n_fft"]
-        spectrum = (fft_tables.device_twiddles(n_fft, CPU).data_ptr(), n_fft,
-                    fb_t.data_ptr(), consts["mel_ranges"].data_ptr())
+        spectrum = (fft_tables.device_twiddles(n_fft, CPU).data_ptr(), n_fft)
         kernel = lib.sspv_frame_features_fft
     else:
-        spectrum = (consts["wc"].data_ptr(), consts["ws"].data_ptr(), n_bins,
-                    fb_t.data_ptr())
-        kernel = lib.sspv_frame_features
+        packed = fk.pack_dense_bases(consts["wc"], consts["ws"])
+        spectrum = (packed.data_ptr(), n_bins, *fk.dense_plan(frame, n_bins, f))
+        kernel = lib.sspv_frame_features_dense
     err = kernel(frames.data_ptr(), f, frame, consts["window"].data_ptr(),
-                 *spectrum, nf, dct.data_ptr(), consts["lifter"].data_ptr(), nc,
+                 *spectrum, fb_t.data_ptr(), consts["mel_ranges"].data_ptr(),
+                 nf, dct.data_ptr(), consts["lifter"].data_ptr(), nc,
                  float(np.float32(np.log(n_bins))),
                  int(consts["entropy_bases"][0] is None),
                  out["energy"].data_ptr(), out["zcr"].data_ptr(),
@@ -114,9 +114,14 @@ def _frames(n: int, frame: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(x.astype(np.float32))
 
 
-# (frame_size, window, n_fft, entropy_n_fft, route): 16-byte and one-float
-# loads (400 vs 322 and 401), a window with zeros, every FFT size, a separate
-# entropy spectrum (the kernel writes zeros), and the dense kernel.
+# (frame_size, window, n_fft, entropy_n_fft, route[, num_filters]): 16-byte
+# and one-float loads (400 vs 322 and 401), a window with zeros, every FFT
+# size, a separate entropy spectrum (the kernel writes zeros), and the dense
+# kernel: an odd n_fft, a non-power-of-two one, Whisper's framing (a
+# 400-point DFT, Hann, 80 mel bands), a frame longer than n_fft (one-float
+# loads, 1030 % 4 == 2), one whose block of 32 frames does not fit shared
+# memory (1600: staged in chunks), and a 64-point DFT (9 column tiles: the
+# last step takes 2 a warp; Whisper's 3 and 512's 1).
 K3_CASES = {
     "fft_320_of_512": (320, "hamming", 512, 512, "fft"),
     "fft_400_of_512": (400, "hamming", 512, 512, "fft"),
@@ -130,19 +135,30 @@ K3_CASES = {
     "fft_separate_entropy": (400, "hamming", 512, 1024, "fft"),
     "dense_odd_n_fft": (400, "hamming", 511, 511, "dense"),
     "dense_n_fft_480": (320, "hamming", 480, 480, "dense"),
+    "dense_whisper_400_hann_80_mel": (400, "hanning", 400, 400, "dense", 80),
+    "dense_frame_1030_of_512": (1030, "hamming", 512, 512, "dense"),
+    "dense_frame_1600_chunked": (1600, "hamming", 512, 512, "dense"),
+    "dense_n_fft_64_two_tiles_a_warp": (64, "hamming", 64, 64, "dense"),
 }
+DENSE_CASES = [k for k, v in K3_CASES.items() if v[4] == "dense"]
+
+
+def _k3_case(case: str, n: int):
+    """The case's constants and ``n`` frames of it."""
+    frame, window, n_fft, ent, route, *nf = K3_CASES[case]
+    pipe = FeaturePipeline(FeatureConfig(
+        frame_size=frame, hop_size=160, window_type=window, n_fft=n_fft,
+        entropy_n_fft=ent, num_filters=(nf or [26])[0]), device="cpu")
+    consts = pipe._frame_consts
+    assert fk.kernel_route(frame, n_fft // 2 + 1, consts["n_fft"]) == route
+    return consts, _frames(n, frame, seed=n)
 
 
 @pytest.mark.parametrize("n", [1, 21])
 @pytest.mark.parametrize("case", list(K3_CASES))
 def test_frame_kernels_on_cpu_match_plain(lib, case, n):
-    frame, window, n_fft, ent, route = K3_CASES[case]
-    pipe = FeaturePipeline(FeatureConfig(
-        frame_size=frame, hop_size=160, window_type=window, n_fft=n_fft,
-        entropy_n_fft=ent), device="cpu")
-    consts = pipe._frame_consts
-    assert fk.kernel_route(frame, n_fft // 2 + 1, consts["n_fft"]) == route
-    frames = _frames(n, frame, seed=n)
+    frame, _, n_fft, ent, route, *_ = K3_CASES[case]
+    consts, frames = _k3_case(case, n)
     got = _k3(lib, frames, consts, route)
     want = fk.frame_features_plain(frames, **consts)
     if ent != n_fft:  # the wrapper fills the entropy in; the kernel writes 0
@@ -155,6 +171,164 @@ def test_frame_kernels_on_cpu_match_plain(lib, case, n):
         alone = _k3(lib, frames[7:8].clone(), consts, route)
         for k in got:
             assert torch.equal(alone[k][0], got[k][7]), k
+
+
+@pytest.mark.parametrize("n", [7, 65])
+@pytest.mark.parametrize("case", DENSE_CASES)
+def test_dense_kernel_on_cpu_matches_plain(lib, case, n):
+    """The dense kernel in blocks of 16 frames (7) and of 32 with a last
+    block of one frame (65): zcr EXACTLY equal, the rest to NMSE; the last
+    frame alone gives the bits it gives in the batch (1600 samples: in
+    chunks in blocks of 32, all at once in blocks of 16)."""
+    consts, frames = _k3_case(case, n)
+    got = _k3(lib, frames, consts, "dense")
+    want = fk.frame_features_plain(frames, **consts)
+    assert torch.equal(got["zcr"], want["zcr"])
+    for k in ("energy", "entropy", "mfcc"):
+        assert _nmse(got[k], want[k]) <= 1e-9, k
+    alone = _k3(lib, frames[-1:].clone(), consts, "dense")
+    for k in got:
+        assert torch.equal(alone[k][0], got[k][-1]), k
+
+
+def test_dense_plan_stages_in_chunks_only_where_it_must():
+    """The plans the cases above run: blocks of 32 frames (16 for up to 16
+    frames), every sample staged at once, except a 1600-sample frame
+    (chunks of 1440, a multiple of 32, staged again for each column
+    step)."""
+    assert fk.dense_plan(400, 201, 65) == (32, 400)
+    assert fk.dense_plan(400, 256, 7) == (16, 400)
+    assert fk.dense_plan(1030, 257, 65) == (32, 1040)
+    assert fk.dense_plan(1600, 257, 21) == (32, 1440)
+    assert fk.dense_plan(1600, 257, 7) == (16, 1600)
+
+
+MMA_TILE = r"""
+#include <cstdint>
+#include "mma_tf32.cuh"
+
+// One m16n8k8 tile: A (16 x 8) and B (8 x 8, [k][n]) row-major in memory,
+// each lane loading the elements the PTX layout gives it; mode 0 rounds both
+// to tf32 (one product), mode 1 splits both (3xTF32).
+__global__ void tile_kernel(const float* a_mem, const float* b_mem,
+                            const float* c_mem, float* d_mem, int mode) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  const float a[4] = {a_mem[g * 8 + t], a_mem[(g + 8) * 8 + t],
+                      a_mem[g * 8 + t + 4], a_mem[(g + 8) * 8 + t + 4]};
+  const float b[2] = {b_mem[t * 8 + g], b_mem[(t + 4) * 8 + g]};
+  const int at[4] = {g * 8 + 2 * t, g * 8 + 2 * t + 1, (g + 8) * 8 + 2 * t,
+                     (g + 8) * 8 + 2 * t + 1};
+  float d[4];
+  for (int i = 0; i < 4; ++i) d[i] = c_mem[at[i]];
+  uint32_t a_hi[4], a_lo[4], b_hi[2], b_lo[2];
+  for (int i = 0; i < 4; ++i) sspv::split_tf32(a[i], a_hi[i], a_lo[i]);
+  for (int i = 0; i < 2; ++i) sspv::split_tf32(b[i], b_hi[i], b_lo[i]);
+  if (mode == 0)
+    sspv::mma_tf32_m16n8k8(d, a_hi, b_hi);
+  else
+    sspv::mma_3xtf32_m16n8k8(d, a_hi, a_lo, b_hi, b_lo);
+  for (int i = 0; i < 4; ++i) d_mem[at[i]] = d[i];
+}
+
+extern "C" void run_tile(const float* a, const float* b, const float* c,
+                         float* d, int mode) {
+  tile_kernel<<<1, 32, 0, nullptr>>>(a, b, c, d, mode);
+}
+
+extern "C" void split(const float* x, float* hi, float* lo, int n) {
+  for (int i = 0; i < n; ++i) {
+    uint32_t h, l;
+    sspv::split_tf32(x[i], h, l);
+    hi[i] = sspv::bits_float(h);
+    lo[i] = sspv::bits_float(l);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def mma_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel sources for the CPU")
+    work = tmp_path_factory.mktemp("mma_tile")
+    src = work / "tile.cpp"
+    src.write_text(LAUNCH.sub(r"emu_launch(\1, \2, ", MMA_TILE))
+    (work / "main.cpp").write_text('#define EMU_MAIN\n#include "cuda_runtime.h"\n')
+    so = work / "libtile.so"
+    res = subprocess.run(
+        ["g++", "-std=c++17", "-O1", "-w", "-fPIC", "-shared", "-pthread",
+         f"-I{STUB}", f"-I{CSRC}", "-o", str(so), str(work / "main.cpp"),
+         str(src)], capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    lib = ctypes.CDLL(str(so))
+    lib.run_tile.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.split.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    return lib
+
+
+def _split(mma_lib, x: np.ndarray):
+    """``split_tf32`` of every value of ``x``."""
+    x = np.ascontiguousarray(x, np.float32)
+    hi, lo = np.empty_like(x), np.empty_like(x)
+    mma_lib.split(x.ctypes.data, hi.ctypes.data, lo.ctypes.data, x.size)
+    return hi, lo
+
+
+def test_tf32_rounding_is_cvt_rna(mma_lib):
+    """Round to nearest, ties AWAY from zero (not to even), 10 mantissa
+    bits kept: as ``cvt.rna.tf32.f32`` does, and as
+    ``frame_kernels._tf32`` rounds the packed bases, for every finite
+    value (a carry rounds into the exponent, up to infinity)."""
+    bits = np.array([0x3F801000, 0xBF801000, 0x3F803000, 0x3F800FFF,
+                     0x3F801001, 0x00000000, 0x3F7FF000, 0x7F7FF000,
+                     0x00001000, 0x80001000], np.uint32)
+    want = np.array([0x3F802000, 0xBF802000, 0x3F804000, 0x3F800000,
+                     0x3F802000, 0x00000000, 0x3F800000, 0x7F800000,
+                     0x00002000, 0x80002000], np.uint32)
+    hi, _ = _split(mma_lib, bits.view(np.float32))
+    np.testing.assert_array_equal(hi.view(np.uint32), want)
+    np.testing.assert_array_equal(fk._tf32(bits.view(np.float32)).view(
+        np.uint32), want)
+    x = np.random.default_rng(0).normal(0, 1000, 4096).astype(np.float32)
+    x = np.concatenate([x, x * 1e-40, x * 1e30])
+    np.testing.assert_array_equal(_split(mma_lib, x)[0], fk._tf32(x))
+
+
+def test_tf32_split_recovers_fp32(mma_lib):
+    """hi + lo carries x to about 2^-22 of its magnitude; hi alone to
+    2^-11."""
+    x = np.random.default_rng(1).normal(0, 1000, 4096).astype(np.float32)
+    hi, lo = _split(mma_lib, x)
+    x64 = x.astype(np.float64)
+    assert np.all(np.abs(hi - x64) <= 2.0**-11 * np.abs(x64))
+    assert np.all(np.abs(hi + lo.astype(np.float64) - x64)
+                  <= 2.0**-22 * np.abs(x64))
+    assert np.abs(hi + lo.astype(np.float64) - x64).max() > 0  # not exact
+
+
+@pytest.mark.parametrize("mode", ["tf32", "3xtf32"])
+def test_mma_tile_emulation_matches_numpy(mma_lib, mode):
+    """One 16 x 8 x 8 tile with C, operands that differ in every element:
+    one TF32 product equals numpy's of the tf32-rounded operands (exact
+    products, one rounding of the sum); the 3xTF32 product is within
+    2^-20 of the float64 product's scale (the fp32 one's order)."""
+    rng = np.random.default_rng(2)
+    a = rng.normal(0, 1, (16, 8)).astype(np.float32)
+    b = rng.normal(0, 1, (8, 8)).astype(np.float32)
+    c = rng.normal(0, 1, (16, 8)).astype(np.float32)
+    d = np.full((16, 8), np.nan, np.float32)
+    mma_lib.run_tile(a.ctypes.data, b.ctypes.data, c.ctypes.data,
+                     d.ctypes.data, int(mode == "3xtf32"))
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    if mode == "tf32":
+        want = (c + fk._tf32(a).astype(np.float64) @ fk._tf32(b)).astype(
+            np.float32)
+        np.testing.assert_array_equal(d, want)
+        assert np.abs(d - (c + a64 @ b64)).max() > 1e-4  # TF32 alone is not
+    else:
+        scale = np.abs(a64) @ np.abs(b64) + np.abs(c)
+        err = np.abs(d - (c + a64 @ b64))
+        assert np.all(err <= 2.0**-20 * scale)
 
 
 # (frame_size, hop): 16-byte loads, one-float loads, and the smallest and
@@ -306,6 +480,13 @@ def test_entry_points_refuse_geometries_without_a_kernel(lib):
                                   1.0, p, p, p, p, None) != 0
     assert lib.sspv_view_features(p, 1, 300, p, p, 512, p, p, 26, p, p, 13,
                                   1.0, p, p, p, p, None) != 0
+    # the dense kernel: a block size it has no instance for, a chunk that is
+    # no multiple of 16, a plan past a block's shared memory
+    for bm, chunk, n_bins in ((48, 400, 257), (64, 100, 257),
+                              (64, 400, 2049)):
+        assert lib.sspv_frame_features_dense(
+            p, 1, 400, p, p, n_bins, bm, chunk, p, p, 26, p, p, 13, 1.0, 1,
+            p, p, p, p, None) != 0
 
 
 # -- K4: the streaming VAD ----------------------------------------------------

@@ -238,3 +238,54 @@ def test_deep_fuzz_counts_a_mismatch(monkeypatch, capsys):
     assert deep_fuzz.main(["0", "1", "--device", "cpu"]) == 1
     assert "GEOMETRY MISMATCH" in capsys.readouterr().out
     assert np.isfinite(deep_fuzz.NMSE_GATE)
+
+
+# K3's geometries at the hour (359,998 frames of 400/160; 359,999 of 320/160
+# for n_fft 640): the dense route's (n_fft 400 with Whisper's Hann and 80 mel
+# bands, 511, 640) and the FFT route's at 512
+K3_BOUND_CASES = {
+    "dense_whisper_400": (dict(frame_size=400, hop_size=160, n_fft=400,
+                               entropy_n_fft=400, window_type="hanning",
+                               num_filters=80), 359_998),
+    "dense_511": (dict(frame_size=400, hop_size=160, n_fft=511,
+                       entropy_n_fft=511), 359_998),
+    "dense_640": (dict(n_fft=640, entropy_n_fft=640), 359_999),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_BOUND_CASES))
+def test_roofline_bounds_k3_dense_route(case):
+    """kernel_bound takes every geometry K3 takes: at the dense route's the
+    function's bound (a real FFT of n_fft points, or the bytes) and the
+    design's (the 3xTF32 product at 495 TFLOP/s, the bytes, or the
+    design's shared-memory traffic) are finite, the design's no lower."""
+    from sspv_tpu_torch.ops.pipeline import FeatureConfig
+    from sspv_tpu_torch.tools import roofline
+
+    geometry, frames = K3_BOUND_CASES[case]
+    cfg = FeatureConfig(**geometry)
+    bins = cfg.n_fft // 2 + 1
+    assert kernel_route(cfg.frame_size, bins, cfg.n_fft) == "dense"
+    b = roofline.kernel_bound("frame_features", cfg, frames)
+    assert all(np.isfinite(b[k]) and b[k] > 0
+               for k in ("bound_ms", "design_bound_ms", "ops", "design_ops"))
+    assert b["bound_by"] == "bytes"
+    assert b["design_ops"] == 3 * 2 * frames * cfg.frame_size * 2 * bins
+    tf32_ms = 1e3 * b["design_ops"] / roofline.TF32_OPS_PER_S
+    assert b["design_bound_ms"] >= max(tf32_ms, b["bound_ms"])
+    assert b["design_bound_by"] in ("TF32 operations", "bytes",
+                                    "shared memory")
+
+
+def test_roofline_bounds_k3_fft_route_as_before():
+    """The FFT route's bounds at 400/160 of 512 points on the hour stay
+    what they were before the dense route had any (0.1788 / 0.2948 ms)."""
+    from sspv_tpu_torch.ops.pipeline import FeatureConfig
+    from sspv_tpu_torch.tools import roofline
+
+    b = roofline.kernel_bound("frame_features",
+                              FeatureConfig(frame_size=400, hop_size=160),
+                              359_998)
+    assert round(b["bound_ms"], 4) == 0.1788 and b["bound_by"] == "bytes"
+    assert round(b["design_bound_ms"], 4) == 0.2948
+    assert b["design_bound_by"] == "shared memory"
