@@ -39,6 +39,7 @@ from . import _build, fft_tables
 from ._build import LAUNCHES, ROUTES
 from .frequency_features import entropy_from_power, spectral_tail
 from .view_kernels import PLAIN_BLOCK_FRAMES, _on, _stream
+from ..utils.profiling import span
 
 __all__ = ["LAUNCHES", "ROUTES", "dense_plan", "frame_features_plain",
            "fused_features", "kernel_route", "pack_dense_bases",
@@ -283,14 +284,15 @@ def fused_features(frames, *, window, wc, ws, fb_t, dct, lifter,
     ``dense_bases`` :func:`pack_dense_bases` of ``wc``/``ws`` (each built on
     each call if left out; the dense route reads the packed bases, not
     ``wc``/``ws``)."""
-    wce, wse = entropy_bases
-    kw = dict(window=window, wc=wc, ws=ws, fb_t=fb_t, dct=dct, lifter=lifter)
-    if frames.device.type == "cpu":
-        return frame_features_plain(frames, entropy_bases=entropy_bases, **kw)
-    if frames.device.type != "cuda":
-        raise ValueError(f"no frame_features kernel for device {frames.device}")
-    out = _launch(frames, compute_entropy=wce is None, n_fft=n_fft,
-                  mel_ranges=mel_ranges, dense_bases=dense_bases, **kw)
-    if wce is not None:
-        out["entropy"] = _separate_entropy(frames, wce, wse)
-    return out
+    with span("sspv.k3.frame_features"):
+        wce, wse = entropy_bases
+        kw = dict(window=window, wc=wc, ws=ws, fb_t=fb_t, dct=dct, lifter=lifter)
+        if frames.device.type == "cpu":
+            return frame_features_plain(frames, entropy_bases=entropy_bases, **kw)
+        if frames.device.type != "cuda":
+            raise ValueError(f"no frame_features kernel for device {frames.device}")
+        out = _launch(frames, compute_entropy=wce is None, n_fft=n_fft,
+                      mel_ranges=mel_ranges, dense_bases=dense_bases, **kw)
+        if wce is not None:
+            out["entropy"] = _separate_entropy(frames, wce, wse)
+        return out

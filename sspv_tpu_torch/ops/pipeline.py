@@ -56,6 +56,7 @@ from .vad_kernels import fused_streaming_vad
 from .view_kernels import fused_view_features
 from .windows import get_window
 from ..utils.framing import frame_i16_to_f32
+from ..utils.profiling import span
 
 __all__ = ["FeatureBlock", "FeatureConfig", "FeaturePipeline"]
 
@@ -378,12 +379,13 @@ class FeaturePipeline:
         return sig if sig.dtype == np.int16 else sig.astype(np.float32, copy=False)
 
     def _upload(self, a) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        a = np.ascontiguousarray(a)
-        if not a.flags.writeable:  # e.g. a view of a JAX array
-            a = a.copy()
-        return torch.from_numpy(a).to(self.device)
+        with span("sspv.pipeline.upload"):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device)
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:  # e.g. a view of a JAX array
+                a = a.copy()
+            return torch.from_numpy(a).to(self.device)
 
     def _frames_on_device(self, frames) -> torch.Tensor:
         return self._upload(frames).to(torch.float32)
@@ -803,7 +805,8 @@ class FeaturePipeline:
         block, new_state, _, _ = self._packed_block_core(
             frames_raw, packed_state, n_valid, route_frames
         )
-        return self._pack_block(block), vad_ops.pack_state(new_state)
+        with span("sspv.pipeline.pack"):
+            return self._pack_block(block), vad_ops.pack_state(new_state)
 
     def process_block_packed_pitch(self, frames_raw, packed_state,
                                    n_valid: int, min_confidence: float,
@@ -815,8 +818,9 @@ class FeaturePipeline:
         )
         f0, conf = self._gated_frames_pitch(frames, self._gate_to(block.vad, n),
                                             min_confidence)
-        return (self._pack_block_pitch(block, f0, conf),
-                vad_ops.pack_state(new_state))
+        with span("sspv.pipeline.pack"):
+            return (self._pack_block_pitch(block, f0, conf),
+                    vad_ops.pack_state(new_state))
 
     def _packed_signal_core(self, samples, packed_state, true_len: int,
                             route_frames: int | None):
@@ -848,7 +852,8 @@ class FeaturePipeline:
         block, new_state, *_ = self._packed_signal_core(
             samples, packed_state, true_len, route_frames
         )
-        return self._pack_block(block), vad_ops.pack_state(new_state)
+        with span("sspv.pipeline.pack"):
+            return self._pack_block(block), vad_ops.pack_state(new_state)
 
     def process_signal_packed_pitch(self, samples, packed_state,
                                     true_len: int, min_confidence: float,
@@ -861,8 +866,9 @@ class FeaturePipeline:
         frames = self._device_stream_frames(x)
         f0, conf = self._gated_frames_pitch(
             frames, self._gate_to(block.vad, true_n), min_confidence)
-        return (self._pack_block_pitch(block, f0, conf),
-                vad_ops.pack_state(new_state))
+        with span("sspv.pipeline.pack"):
+            return (self._pack_block_pitch(block, f0, conf),
+                    vad_ops.pack_state(new_state))
 
     @staticmethod
     def _host_rows(packed, n: int) -> np.ndarray:

@@ -35,6 +35,7 @@ import torch
 
 from . import _build
 from . import vad as vad_ops
+from ..utils.profiling import span
 
 __all__ = ["fused_streaming_vad", "plain_streaming_vad"]
 
@@ -123,29 +124,30 @@ def fused_streaming_vad(
     ``(f,)`` or ``(B, f)``; ``state`` has the matching leading axis;
     ``valid`` is a bool mask of their shape or None. Returns ``(vad int32,
     vad_adaptive int32, new_state)``."""
-    kw = dict(energy_threshold=energy_threshold, zcr_threshold=zcr_threshold,
-              entropy_voice_max=entropy_voice_max, use_adaptive=use_adaptive,
-              adaptive_alpha=adaptive_alpha,
-              min_energy_threshold=min_energy_threshold,
-              max_zcr_threshold=max_zcr_threshold, hangover_on=hangover_on,
-              release_off=release_off, history_len=history_len, valid=valid,
-              trailing_impl=trailing_impl, adaptive_margin=adaptive_margin,
-              composite_mode=composite_mode, lengths=lengths,
-              route_frames=route_frames)
-    if energy.device.type == "cpu":
-        return plain_streaming_vad(energy, zcr, entropy, state, **kw)
-    if energy.device.type != "cuda":
-        raise ValueError(f"no vad kernel for device {energy.device}")
-    dev = energy.device
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err, route, out = launch(lib, energy, zcr, entropy, state,
-                                 torch.cuda.current_stream(dev).cuda_stream,
-                                 **kw)
-    if route is not None:
-        _build.check(err, "vad")
-        _build.count("vad", route)
-    return out
+    with span("sspv.k4.vad"):
+        kw = dict(energy_threshold=energy_threshold, zcr_threshold=zcr_threshold,
+                  entropy_voice_max=entropy_voice_max, use_adaptive=use_adaptive,
+                  adaptive_alpha=adaptive_alpha,
+                  min_energy_threshold=min_energy_threshold,
+                  max_zcr_threshold=max_zcr_threshold, hangover_on=hangover_on,
+                  release_off=release_off, history_len=history_len, valid=valid,
+                  trailing_impl=trailing_impl, adaptive_margin=adaptive_margin,
+                  composite_mode=composite_mode, lengths=lengths,
+                  route_frames=route_frames)
+        if energy.device.type == "cpu":
+            return plain_streaming_vad(energy, zcr, entropy, state, **kw)
+        if energy.device.type != "cuda":
+            raise ValueError(f"no vad kernel for device {energy.device}")
+        dev = energy.device
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err, route, out = launch(lib, energy, zcr, entropy, state,
+                                     torch.cuda.current_stream(dev).cuda_stream,
+                                     **kw)
+        if route is not None:
+            _build.check(err, "vad")
+            _build.count("vad", route)
+        return out
 
 
 def launch(lib, energy, zcr, entropy, state, stream, *, energy_threshold,

@@ -33,6 +33,7 @@ import torch
 from . import _build, fft_tables
 from ._build import LAUNCHES
 from .frequency_features import spectral_tail
+from ..utils.profiling import span
 
 __all__ = [
     "LAUNCHES",
@@ -191,55 +192,56 @@ def fused_view_features(rows, *, w2, wm, wnyq, fb_t, dct, lifter, window,
     does not take the transform. ``mel_ranges`` is
     ``fft_tables.mel_ranges(fb_t)`` as an int32 tensor on the device (built
     from ``fb_t`` on each call if left out)."""
-    if rows.device.type == "cpu":
-        return view_features_plain(rows, w2=w2, wm=wm, wnyq=wnyq, fb_t=fb_t,
-                                   dct=dct, lifter=lifter)
-    if rows.device.type != "cuda":
-        raise ValueError(f"no view_features kernel for device {rows.device}")
-    rows = _check_rows(rows)
-    dev = rows.device
-    f, hop = rows.shape[0] - 1, rows.shape[1]
-    frame = 2 * hop
-    if n_fft is None:
-        raise NotImplementedError(
-            "the view_features kernel computes the spectrum by an FFT: it "
-            "takes wm/wnyq only with the n_fft they are the windowed basis of")
-    if fft_tables.fft_route_size(frame, n_fft) is None:
-        raise NotImplementedError(
-            f"the view_features kernel takes n_fft in {fft_tables.FFT_SIZES} "
-            f"no shorter than the frame, got n_fft={n_fft}, frame={frame}")
-    num_filters, num_ceps = fb_t.shape[1], dct.shape[1]
-    n_bins = n_fft // 2 + 1
-    if tuple(wm.shape) != (frame, n_fft):
-        raise ValueError(f"wm must be ({frame}, {n_fft}), got {tuple(wm.shape)}")
-    window = _on(dev, "window", window, (frame,))
-    fb_t = _on(dev, "fb_t", fb_t, (n_bins, num_filters))
-    dct = _on(dev, "dct", dct, (num_filters, num_ceps))
-    lifter = _on(dev, "lifter", lifter, (num_ceps,))
-    if mel_ranges is None:
-        mel_ranges = torch.from_numpy(
-            fft_tables.mel_ranges(fb_t.cpu().numpy())).to(dev)
-    mel_ranges = _on(dev, "mel_ranges", mel_ranges, (num_filters, 2),
-                     torch.int32)
-    table = fft_tables.device_twiddles(n_fft, dev)
-    energy = torch.empty(f, device=dev)
-    zcr = torch.empty(f, device=dev)
-    entropy = torch.empty(f, device=dev)
-    mfcc = torch.empty((f, num_ceps), device=dev)
-    if f:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            err = lib.sspv_view_features(
-                rows.data_ptr(), f, hop, window.data_ptr(), table.data_ptr(),
-                n_fft, fb_t.data_ptr(), mel_ranges.data_ptr(), num_filters,
-                dct.data_ptr(), lifter.data_ptr(), num_ceps,
-                float(np.float32(np.log(n_bins))), energy.data_ptr(),
-                zcr.data_ptr(), entropy.data_ptr(), mfcc.data_ptr(),
-                _stream(dev),
-            )
-        _build.check(err, "view_features")
-        _build.count("view_features")
-    return {"energy": energy, "zcr": zcr, "entropy": entropy, "mfcc": mfcc}
+    with span("sspv.k1.view_features"):
+        if rows.device.type == "cpu":
+            return view_features_plain(rows, w2=w2, wm=wm, wnyq=wnyq, fb_t=fb_t,
+                                       dct=dct, lifter=lifter)
+        if rows.device.type != "cuda":
+            raise ValueError(f"no view_features kernel for device {rows.device}")
+        rows = _check_rows(rows)
+        dev = rows.device
+        f, hop = rows.shape[0] - 1, rows.shape[1]
+        frame = 2 * hop
+        if n_fft is None:
+            raise NotImplementedError(
+                "the view_features kernel computes the spectrum by an FFT: it "
+                "takes wm/wnyq only with the n_fft they are the windowed basis of")
+        if fft_tables.fft_route_size(frame, n_fft) is None:
+            raise NotImplementedError(
+                f"the view_features kernel takes n_fft in {fft_tables.FFT_SIZES} "
+                f"no shorter than the frame, got n_fft={n_fft}, frame={frame}")
+        num_filters, num_ceps = fb_t.shape[1], dct.shape[1]
+        n_bins = n_fft // 2 + 1
+        if tuple(wm.shape) != (frame, n_fft):
+            raise ValueError(f"wm must be ({frame}, {n_fft}), got {tuple(wm.shape)}")
+        window = _on(dev, "window", window, (frame,))
+        fb_t = _on(dev, "fb_t", fb_t, (n_bins, num_filters))
+        dct = _on(dev, "dct", dct, (num_filters, num_ceps))
+        lifter = _on(dev, "lifter", lifter, (num_ceps,))
+        if mel_ranges is None:
+            mel_ranges = torch.from_numpy(
+                fft_tables.mel_ranges(fb_t.cpu().numpy())).to(dev)
+        mel_ranges = _on(dev, "mel_ranges", mel_ranges, (num_filters, 2),
+                         torch.int32)
+        table = fft_tables.device_twiddles(n_fft, dev)
+        energy = torch.empty(f, device=dev)
+        zcr = torch.empty(f, device=dev)
+        entropy = torch.empty(f, device=dev)
+        mfcc = torch.empty((f, num_ceps), device=dev)
+        if f:
+            lib = _build.library()
+            with torch.cuda.device(dev):
+                err = lib.sspv_view_features(
+                    rows.data_ptr(), f, hop, window.data_ptr(), table.data_ptr(),
+                    n_fft, fb_t.data_ptr(), mel_ranges.data_ptr(), num_filters,
+                    dct.data_ptr(), lifter.data_ptr(), num_ceps,
+                    float(np.float32(np.log(n_bins))), energy.data_ptr(),
+                    zcr.data_ptr(), entropy.data_ptr(), mfcc.data_ptr(),
+                    _stream(dev),
+                )
+            _build.check(err, "view_features")
+            _build.count("view_features")
+        return {"energy": energy, "zcr": zcr, "entropy": entropy, "mfcc": mfcc}
 
 
 def fused_view_pitch(rows, *, merged, nyq_b, inv_live, inv_nyq, lag_min: int,
@@ -250,37 +252,38 @@ def fused_view_pitch(rows, *, merged, nyq_b, inv_live, inv_nyq, lag_min: int,
     plain version multiplies by them; the kernel takes only their geometry
     (the frame size and the number of lags) and a twiddle table. A geometry
     whose transform would pass the largest FFT size raises."""
-    if rows.device.type == "cpu":
-        return view_pitch_plain(rows, merged=merged, nyq_b=nyq_b,
-                                inv_live=inv_live, inv_nyq=inv_nyq,
-                                lag_min=lag_min, lag_max=lag_max,
-                                sample_rate=sample_rate)
-    if rows.device.type != "cuda":
-        raise ValueError(f"no view_pitch kernel for device {rows.device}")
-    rows = _check_rows(rows)
-    dev = rows.device
-    f, hop = rows.shape[0] - 1, rows.shape[1]
-    frame, n_lags = 2 * hop, inv_live.shape[1]
-    if merged.shape[0] != frame or not 0 <= lag_min <= lag_max < n_lags:
-        raise ValueError(f"bad ACF geometry: bases of {merged.shape[0]} "
-                         f"samples for frames of {frame}, n_lags={n_lags}, "
-                         f"band=[{lag_min}, {lag_max}]")
-    n_fft = fft_tables.acf_fft_size(frame, n_lags)
-    if n_fft is None:
-        raise NotImplementedError(
-            f"the view_pitch kernel takes frame + n_lags - 1 <= "
-            f"{fft_tables.FFT_SIZES[-1]}, got frame={frame}, n_lags={n_lags}")
-    table = fft_tables.device_twiddles(n_fft, dev)
-    f0 = torch.empty(f, device=dev)
-    conf = torch.empty(f, device=dev)
-    if f:
-        lib = _build.library()
-        with torch.cuda.device(dev):
-            err = lib.sspv_view_pitch(
-                rows.data_ptr(), f, hop, table.data_ptr(), n_fft,
-                int(lag_min), int(lag_max), float(sample_rate),
-                f0.data_ptr(), conf.data_ptr(), _stream(dev),
-            )
-        _build.check(err, "view_pitch")
-        _build.count("view_pitch")
-    return f0, conf
+    with span("sspv.k2.view_pitch"):
+        if rows.device.type == "cpu":
+            return view_pitch_plain(rows, merged=merged, nyq_b=nyq_b,
+                                    inv_live=inv_live, inv_nyq=inv_nyq,
+                                    lag_min=lag_min, lag_max=lag_max,
+                                    sample_rate=sample_rate)
+        if rows.device.type != "cuda":
+            raise ValueError(f"no view_pitch kernel for device {rows.device}")
+        rows = _check_rows(rows)
+        dev = rows.device
+        f, hop = rows.shape[0] - 1, rows.shape[1]
+        frame, n_lags = 2 * hop, inv_live.shape[1]
+        if merged.shape[0] != frame or not 0 <= lag_min <= lag_max < n_lags:
+            raise ValueError(f"bad ACF geometry: bases of {merged.shape[0]} "
+                             f"samples for frames of {frame}, n_lags={n_lags}, "
+                             f"band=[{lag_min}, {lag_max}]")
+        n_fft = fft_tables.acf_fft_size(frame, n_lags)
+        if n_fft is None:
+            raise NotImplementedError(
+                f"the view_pitch kernel takes frame + n_lags - 1 <= "
+                f"{fft_tables.FFT_SIZES[-1]}, got frame={frame}, n_lags={n_lags}")
+        table = fft_tables.device_twiddles(n_fft, dev)
+        f0 = torch.empty(f, device=dev)
+        conf = torch.empty(f, device=dev)
+        if f:
+            lib = _build.library()
+            with torch.cuda.device(dev):
+                err = lib.sspv_view_pitch(
+                    rows.data_ptr(), f, hop, table.data_ptr(), n_fft,
+                    int(lag_min), int(lag_max), float(sample_rate),
+                    f0.data_ptr(), conf.data_ptr(), _stream(dev),
+                )
+            _build.check(err, "view_pitch")
+            _build.count("view_pitch")
+        return f0, conf

@@ -37,13 +37,9 @@ from ..ops import vad as vad_ops
 from ..ops.pipeline import FeatureBlock, FeatureConfig, FeaturePipeline
 from ..ops.pitch import _lag_band, pitch_from_frames, pitch_track_signal_gated
 from ..ops.view_kernels import fused_view_pitch
+from ..utils.profiling import span
 
 __all__ = ["BatchPipeline", "Mesh", "make_mesh"]
-
-# Calls of the shard route's feature stage (``_long_kernel_feats``), on any
-# device: the counterpart of the JAX package's trace count of its
-# shard_map'd kernel stage.
-MESH_KERNEL_TRACE_COUNT = 0
 
 
 class Mesh:
@@ -173,8 +169,9 @@ class BatchPipeline:
         """A ``(B, L)`` batch of equal-length signals, rows over "data".
         Returns ``(FeatureBlock, VadState)`` with a leading ``(B,)`` axis,
         on the mesh's first device."""
-        block, states, _ = self._rows(signals, None, states, None)
-        return block, states
+        with span("sspv.mesh.process_batch"):
+            block, states, _ = self._rows(signals, None, states, None)
+            return block, states
 
     def process_batch_masked(self, signals, lengths,
                              states: vad_ops.VadState | None = None):
@@ -182,8 +179,9 @@ class BatchPipeline:
         ``lengths[i]`` is row i's true sample count. Frames past a row's
         true length are masked out of its VAD state (a row shorter than a
         frame keeps its state)."""
-        block, states, _ = self._rows(signals, lengths, states, None)
-        return block, states
+        with span("sspv.mesh.process_batch_masked"):
+            block, states, _ = self._rows(signals, lengths, states, None)
+            return block, states
 
     def process_batch_masked_pitch(self, signals, lengths,
                                    states: vad_ops.VadState | None = None,
@@ -195,21 +193,24 @@ class BatchPipeline:
         (``pitch_track_signal_gated``: ungated track, then
         ``(vad > 0) & (conf >= min_confidence)``) on the VAD masked to each
         row's true frames, as the two-call construction gates it."""
-        block, states, (f0, conf) = self._rows(
-            signals, lengths, states, (fmin, fmax)
-        )
-        return (block, states,
-                *self._gated_pitch(block, lengths, f0, conf, min_confidence))
+        with span("sspv.mesh.process_batch_masked_pitch"):
+            block, states, (f0, conf) = self._rows(
+                signals, lengths, states, (fmin, fmax)
+            )
+            return (block, states, *self._gated_pitch(
+                block, lengths, f0, conf, min_confidence))
 
     def _gated_pitch(self, block, lengths, f0, conf, min_confidence: float):
         """The batch programs' pitch gate: ``(vad > 0) & (conf >=
         min_confidence)``, and frames past each row's true length off.
         Returns ``(f0, conf)``."""
-        mc = float(np.float32(min_confidence))
-        gate = (block.vad > 0) & (conf >= mc)
-        if lengths is not None:
-            gate &= self._valid(lengths, block.vad.shape[1], block.vad.device)
-        return torch.where(gate, f0, torch.zeros_like(f0)), conf
+        with span("sspv.mesh.gate"):
+            mc = float(np.float32(min_confidence))
+            gate = (block.vad > 0) & (conf >= mc)
+            if lengths is not None:
+                gate &= self._valid(lengths, block.vad.shape[1],
+                                    block.vad.device)
+            return torch.where(gate, f0, torch.zeros_like(f0)), conf
 
     def _exact_batch(self, signals, lengths, route_frames: int,
                      band: tuple | None = None, min_confidence: float = 0.3):
@@ -221,12 +222,13 @@ class BatchPipeline:
         of ``route_frames`` frames (the bucket the JAX package's batch has).
         Returns ``(block, f0, conf)`` (``f0``/``conf`` None without a band);
         past a row's true frames the features, f0 and conf are 0."""
-        block, _, pitch = self._rows(signals, lengths, None, band,
-                                     route_frames, exact=True)
-        if band is None:
-            return block, None, None
-        return (block,
-                *self._gated_pitch(block, lengths, *pitch, min_confidence))
+        with span("sspv.mesh.exact_batch"):
+            block, _, pitch = self._rows(signals, lengths, None, band,
+                                         route_frames, exact=True)
+            if band is None:
+                return block, None, None
+            return (block,
+                    *self._gated_pitch(block, lengths, *pitch, min_confidence))
 
     def _true_n(self, lengths) -> np.ndarray:
         c = self.pipe.cfg
@@ -267,17 +269,19 @@ class BatchPipeline:
         for i in range(dp):
             pipe = self._pipes[self.mesh.devices[i, 0]]
             rows = slice(i * per, (i + 1) * per)
-            x = pipe._upload(sig[rows]).to(torch.float32)
             own = None  # with exact: each row's frame count
-            if exact and f:
-                own = [int(n) for n in true_n[rows]]
-                windows = x.unfold(1, c.frame_size, c.hop_size)
-                frames = torch.cat([windows[r, :n] for r, n in enumerate(own)])
-            elif f:
-                frames = (x.unfold(1, c.frame_size, c.hop_size)
-                          .reshape(-1, c.frame_size))
-            else:
-                frames = x.new_zeros((0, c.frame_size))
+            with span("sspv.mesh.rows.frame"):
+                x = pipe._upload(sig[rows]).to(torch.float32)
+                if exact and f:
+                    own = [int(n) for n in true_n[rows]]
+                    windows = x.unfold(1, c.frame_size, c.hop_size)
+                    frames = torch.cat([windows[r, :n]
+                                        for r, n in enumerate(own)])
+                elif f:
+                    frames = (x.unfold(1, c.frame_size, c.hop_size)
+                              .reshape(-1, c.frame_size))
+                else:
+                    frames = x.new_zeros((0, c.frame_size))
             feats = pipe._features(frames)  # one K3 launch for all rows
             feats = {k: self._per_row(v, per, f, own)
                      for k, v in feats.items()}
@@ -295,11 +299,12 @@ class BatchPipeline:
             if band is not None:
                 pitch.append(tuple(t.to(dev0) for t in self._rows_pitch(
                     pipe, x, frames, f, *band, own=own)))
-        block = FeatureBlock(*(torch.cat(ts) for ts in zip(*blocks)))
-        new = vad_ops.VadState(*(torch.cat(ts) for ts in zip(*new_states)))
-        out_pitch = None
-        if band is not None:
-            out_pitch = tuple(torch.cat(ts) for ts in zip(*pitch))
+        with span("sspv.mesh.rows.collect"):
+            block = FeatureBlock(*(torch.cat(ts) for ts in zip(*blocks)))
+            new = vad_ops.VadState(*(torch.cat(ts) for ts in zip(*new_states)))
+            out_pitch = None
+            if band is not None:
+                out_pitch = tuple(torch.cat(ts) for ts in zip(*pitch))
         return block, new, out_pitch
 
     @staticmethod
@@ -307,12 +312,13 @@ class BatchPipeline:
         """Per-frame values of the batch's rows as ``(per, f, ...)``:
         ``v`` holds every frame of every row, or with ``own`` (each row's
         frame count) only those, one row after another; the rest are 0."""
-        if own is None:
-            return v.reshape((per, f) + v.shape[1:])
-        out = v.new_zeros((per, f) + v.shape[1:])
-        for r, part in enumerate(v.split(own)):
-            out[r, : part.shape[0]] = part
-        return out
+        with span("sspv.mesh.rows.per_row"):
+            if own is None:
+                return v.reshape((per, f) + v.shape[1:])
+            out = v.new_zeros((per, f) + v.shape[1:])
+            for r, part in enumerate(v.split(own)):
+                out[r, : part.shape[0]] = part
+            return out
 
     @classmethod
     def _rows_pitch(cls, pipe, x, frames, f: int, fmin: float, fmax: float,
@@ -361,25 +367,26 @@ class BatchPipeline:
         (fpb+1, hop) float32 rows on it)``, a contiguous block of ``fpb``
         frames plus its seam row (the next block's first row), with zero
         rows past the signal."""
-        devices = list(self.mesh.devices.flat)
-        fpb = -(-n // len(devices))
-        out = []
-        for i, dev in enumerate(devices):
-            t = rows[i * fpb : (i + 1) * fpb + 1].to(dev).to(torch.float32)
-            if t.shape[0] < fpb + 1:
-                t = torch.nn.functional.pad(t, (0, 0, 0, fpb + 1 - t.shape[0]))
-            out.append((dev, t))
-        return out
+        with span("sspv.mesh.shard"):
+            devices = list(self.mesh.devices.flat)
+            fpb = -(-n // len(devices))
+            out = []
+            for i, dev in enumerate(devices):
+                t = rows[i * fpb : (i + 1) * fpb + 1].to(dev).to(torch.float32)
+                if t.shape[0] < fpb + 1:
+                    t = torch.nn.functional.pad(
+                        t, (0, 0, 0, fpb + 1 - t.shape[0]))
+                out.append((dev, t))
+            return out
 
     def _gather(self, parts, n: int) -> torch.Tensor:
-        return torch.cat([t.to(self.pipe.device) for t in parts])[:n]
+        with span("sspv.mesh.gather"):
+            return torch.cat([t.to(self.pipe.device) for t in parts])[:n]
 
     def _long_kernel_feats(self, rows: torch.Tensor, n: int) -> dict:
         """K1 per device on its block of frames plus seam row
         (``mesh.py:304``); the features gathered to the first device and
         sliced to the true ``n`` frames."""
-        global MESH_KERNEL_TRACE_COUNT
-        MESH_KERNEL_TRACE_COUNT += 1
         parts = [self._pipes[dev]._features_from_rows(t)
                  for dev, t in self._shards(rows, n)]
         return {k: self._gather([p[k] for p in parts], n) for k in parts[0]}
@@ -430,8 +437,9 @@ class BatchPipeline:
         single-device view path, else (off the view geometry) device
         framing and K3; each then runs the padded blocked VAD
         (``_vad_full_length``) on the first device."""
-        block, state, *_ = self._long(signal, state)
-        return block, state
+        with span("sspv.mesh.process_long"):
+            block, state, *_ = self._long(signal, state)
+            return block, state
 
     def process_long_pitch(self, signal,
                            state: vad_ops.VadState | None = None,
@@ -442,12 +450,16 @@ class BatchPipeline:
         per device on the same shards; otherwise it is the single-device
         ``pitch_track_signal_gated``. One gate either way:
         ``(vad > 0) & (conf >= min_confidence)``."""
-        p = self.pipe
-        block, state, x, rows, n = self._long(signal, state)
-        if rows is None:
-            f0, conf = pitch_track_signal_gated(
-                x, block.vad, min_confidence, **p._pitch_kwargs(fmin, fmax))
+        with span("sspv.mesh.process_long_pitch"):
+            p = self.pipe
+            block, state, x, rows, n = self._long(signal, state)
+            if rows is None:
+                f0, conf = pitch_track_signal_gated(
+                    x, block.vad, min_confidence, **p._pitch_kwargs(fmin, fmax))
+                return block, state, f0, conf
+            f0u, conf = self._long_kernel_pitch(rows, n, fmin, fmax)
+            with span("sspv.mesh.gate"):
+                gate = (block.vad > 0) & (conf >= float(np.float32(
+                    min_confidence)))
+                f0 = torch.where(gate, f0u, torch.zeros_like(f0u))
             return block, state, f0, conf
-        f0u, conf = self._long_kernel_pitch(rows, n, fmin, fmax)
-        gate = (block.vad > 0) & (conf >= float(np.float32(min_confidence)))
-        return block, state, torch.where(gate, f0u, torch.zeros_like(f0u)), conf

@@ -55,6 +55,7 @@ from ..config import Config
 from ..config import parse_buckets as _parse_buckets
 from ..ops.pipeline import FeatureConfig, FeaturePipeline
 from ..utils.framing import frame_i16_to_f32
+from ..utils.profiling import span
 from .audio_source import AudioSource, PyAudioSource
 
 logger = logging.getLogger(__name__)
@@ -443,53 +444,66 @@ class AudioRuntime:
         the readback of its block (non-blocking). Packed I/O: frames + one
         packed-state buffer in, one packed block out (the new state never
         leaves the device). The block's bucket, the shape the JAX engine
-        pads it to, sets only the VAD's summation order.
+        pads it to, sets only the VAD's summation order. Returns what
+        :meth:`_materialize` takes: ``(host block, event, frames, the
+        block's request id)``.
         """
-        n = frames.shape[0]
-        bucket = self._bucket_for(n)
-        if self._pitch_enabled:
-            out, self._vad_state_packed = (
-                self.pipeline.process_block_packed_pitch(
-                    frames, self._vad_state_packed, n, self._pitch_min_conf,
-                    route_frames=bucket,
+        with span("sspv.engine.dispatch") as req:
+            n = frames.shape[0]
+            bucket = self._bucket_for(n)
+            if self._pitch_enabled:
+                out, self._vad_state_packed = (
+                    self.pipeline.process_block_packed_pitch(
+                        frames, self._vad_state_packed, n,
+                        self._pitch_min_conf, route_frames=bucket,
+                    )
                 )
-            )
-        else:
-            out, self._vad_state_packed = self.pipeline.process_block_packed(
-                frames, self._vad_state_packed, n, route_frames=bucket
-            )
-        self.dispatch_count += 1
-        return (*self._start_readback(out), n)
+            else:
+                out, self._vad_state_packed = (
+                    self.pipeline.process_block_packed(
+                        frames, self._vad_state_packed, n, route_frames=bucket
+                    )
+                )
+            self.dispatch_count += 1
+            return (*self._start_readback(out), n, req)
 
     def _dispatch_samples(self, samples: np.ndarray):
         """Enqueue one packed device program on an int16 sample block of
         whole frames and its readback (non-blocking), with the VAD order of
         the block's bucket (in frames, the same ``TPU_STREAM_BUCKETS`` set
         as the frames layout), as :meth:`_dispatch`."""
-        n = 1 + (len(samples) - self.frame_size) // self.hop_size
-        bucket = self._bucket_for(n)
-        if self._pitch_enabled:
-            out, self._vad_state_packed = (
-                self.pipeline.process_signal_packed_pitch(
-                    samples, self._vad_state_packed, len(samples),
-                    self._pitch_min_conf, route_frames=bucket,
+        with span("sspv.engine.dispatch") as req:
+            n = 1 + (len(samples) - self.frame_size) // self.hop_size
+            bucket = self._bucket_for(n)
+            if self._pitch_enabled:
+                out, self._vad_state_packed = (
+                    self.pipeline.process_signal_packed_pitch(
+                        samples, self._vad_state_packed, len(samples),
+                        self._pitch_min_conf, route_frames=bucket,
+                    )
                 )
-            )
-        else:
-            out, self._vad_state_packed = self.pipeline.process_signal_packed(
-                samples, self._vad_state_packed, len(samples),
-                route_frames=bucket,
-            )
-        self.dispatch_count += 1
-        return (*self._start_readback(out), n)
+            else:
+                out, self._vad_state_packed = (
+                    self.pipeline.process_signal_packed(
+                        samples, self._vad_state_packed, len(samples),
+                        route_frames=bucket,
+                    )
+                )
+            self.dispatch_count += 1
+            return (*self._start_readback(out), n, req)
 
     def _materialize(self, inflight) -> None:
         """Wait for one dispatched block's readback (its event) and publish
-        the block: ONE packed array per block, split on the host."""
-        out, done, n = inflight
+        the block: ONE packed array per block, split on the host. The
+        publish span carries the block's request id, its dispatch's."""
+        out, done, n, req = inflight
         if done is not None:
-            done.synchronize()
-        packed = out.numpy()
+            with span("sspv.engine.readback_wait", req):
+                done.synchronize()
+        with span("sspv.engine.publish", req):
+            self._publish(out.numpy(), n)
+
+    def _publish(self, packed: np.ndarray, n: int) -> None:
         if self._pitch_enabled:
             host, f0, conf = self.pipeline.split_packed_block_pitch(packed, n)
         else:
@@ -529,15 +543,20 @@ class AudioRuntime:
 
         def take(carry):
             """Mode-dependent pull: returns (payload or None, n_frames, carry)."""
-            if self._samples_dispatch:
-                block, carry = self._take_samples(carry)
-                if block is None:
+            with span("sspv.engine.take"):
+                if self._samples_dispatch:
+                    block, carry = self._take_samples(carry)
+                    if block is None:
+                        return None, 0, carry
+                    return block, 1 + (len(block) - frame) // hop, carry
+                frames, carry = self._take_frames(carry)
+                if frames.shape[0] == 0:
                     return None, 0, carry
-                return block, 1 + (len(block) - frame) // hop, carry
-            frames, carry = self._take_frames(carry)
-            if frames.shape[0] == 0:
-                return None, 0, carry
-            return frames, frames.shape[0], carry
+                return frames, frames.shape[0], carry
+
+        def poll_wait():
+            with span("sspv.engine.poll_wait"):
+                time.sleep(Config.THREAD_SLEEP_TIME)
 
         def dispatch_split(payload, n, inflight):
             """Dispatch ``payload`` in <=max_bucket-frame slices, keeping
@@ -568,14 +587,14 @@ class AudioRuntime:
                     if inflight is not None:
                         self._materialize(inflight)
                         inflight = None
-                    time.sleep(Config.THREAD_SLEEP_TIME)
+                    poll_wait()
                     continue
                 payload, n, carry = take(carry)
                 if n == 0:
                     if inflight is not None:
                         self._materialize(inflight)
                         inflight = None
-                    time.sleep(Config.THREAD_SLEEP_TIME)
+                    poll_wait()
                     continue
                 last_dispatch = time.monotonic()
                 inflight = dispatch_split(payload, n, inflight)
@@ -602,7 +621,7 @@ class AudioRuntime:
                     # thread's final append happened-before that take, so an
                     # empty take here means truly drained
                     break
-                time.sleep(Config.THREAD_SLEEP_TIME)
+                poll_wait()
         except Exception as e:
             self.last_error = e
             self.is_running = False  # see capture-thread note: don't hang pollers

@@ -40,8 +40,9 @@ warm-up step), and prints one line: the top 25 device operations by
 device time, the window from the first device operation's start to the
 last one's end, the device's busy time (the union of kernels and copies),
 ``idle_share = 1 - busy / window``, the kernel launches per call, and the
-five longest idle gaps with the host operation that was running when each
-began. The profiler's own host cost widens the gaps, so the line also
+five longest idle gaps with the host operation and the program's span
+(``sspv.*``, null outside the program) that were running when each began.
+The profiler's own host cost widens the gaps, so the line also
 gives ``idle_share_unprofiled``: one minus the traced busy time per call
 over the CUDA-event time per call of the same program timed unprofiled
 just before (3 rounds of 4 queued calls, as the program lines). Without device events (the CPU, or a profiler that records none),
@@ -439,9 +440,11 @@ def _launch(e: dict) -> bool:
 def read_trace(events: list, calls: int) -> dict:
     """The device figures of a Chrome trace's events (microseconds):
     busy time, window, idle share, launches per call, the top device
-    operations and the longest idle gaps. Null fields where the trace
-    holds no device event, or fewer kernels than the host launched (the
-    profiler lost some: every figure would be wrong)."""
+    operations and the longest idle gaps, each with the innermost host
+    operation and the innermost program span (``sspv.*``, null outside the
+    program) running when it began. Null fields where the trace holds no
+    device event, or fewer kernels than the host launched (the profiler
+    lost some: every figure would be wrong)."""
     x = [e for e in events if e.get("ph") == "X"]
     dev = [e for e in x if e.get("cat") in DEVICE_CATS]
     recorded = sum(e["cat"] == "kernel" for e in dev)
@@ -454,6 +457,8 @@ def read_trace(events: list, calls: int) -> dict:
         return out
     host_ops = [e for e in x
                 if e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver")]
+    program = [e for e in x if e.get("cat") == "user_annotation"
+               and e["name"].startswith("sspv.")]
     spans = _union([[e["ts"], e["ts"] + e["dur"]] for e in dev])
     window = spans[-1][1] - spans[0][0]
     busy = sum(b - a for a, b in spans)
@@ -474,7 +479,8 @@ def read_trace(events: list, calls: int) -> dict:
                               for name, (ms, count) in top],
         "longest_gaps": [{"gap_ms": g / 1e3,
                           "at_ms": (t - spans[0][0]) / 1e3,
-                          "host_op": _host_op_at(t, host_ops)}
+                          "host_op": _host_op_at(t, host_ops),
+                          "program_span": _host_op_at(t, program)}
                          for g, t in gaps],
     })
     return out

@@ -1,5 +1,5 @@
-"""Host-side helpers of the port (NumPy only, but for ``device_trace``,
-which imports ``torch.profiler`` when it is entered)."""
+"""Host-side helpers of the port (NumPy only, but for ``profiling``: the
+``torch.profiler`` trace context and the program's spans)."""
 
 from .export import export_features_npz, summarize_features
 from .framing import frame_i16_to_f32

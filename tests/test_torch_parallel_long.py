@@ -17,6 +17,7 @@ identical on every frame and confidence NMSE <= 1e-9.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from sspv_tpu.ops.pipeline import FeatureConfig as JConfig
 from sspv_tpu.parallel import BatchPipeline as JBatchPipeline
@@ -25,7 +26,7 @@ from sspv_tpu_torch.ops.pipeline import FEATURE_CONSTANTS
 from sspv_tpu_torch.ops.pipeline import FeatureConfig as TConfig
 from sspv_tpu_torch.ops.pitch import pitch_track_signal_gated
 from sspv_tpu_torch.parallel import BatchPipeline, make_mesh
-from sspv_tpu_torch.parallel import mesh as mesh_mod
+from sspv_tpu_torch.utils.profiling import clear_spans, span_totals
 
 FEATURES = ("energy", "zcr", "entropy", "mfcc", "vad", "vad_adaptive")
 SIZES = (17, 99, 1024, 1203)
@@ -97,9 +98,14 @@ def test_process_long(jax_long, n, d, route):
     bp = port(jbp.pipe, d, route)
     assert bp._long_kernel == (route == "shard")
     sig = signal(n)
-    before = mesh_mod.MESH_KERNEL_TRACE_COUNT
-    block, state = bp.process_long(sig)
-    assert mesh_mod.MESH_KERNEL_TRACE_COUNT == before + (route == "shard")
+    clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        block, state = bp.process_long(sig)
+    totals = span_totals()
+    assert totals["sspv.mesh.process_long"]["count"] == 1
+    # the shard route splits the frames once; the view route never
+    assert totals.get("sspv.mesh.shard", {"count": 0})["count"] == (
+        route == "shard")
     assert block.energy.shape == (n,) and block.mfcc.shape == (n, 13)
     # bit-identical to the single-device kernel call
     one, one_state = bp.pipe.process_signal_device(sig)

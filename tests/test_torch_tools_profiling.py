@@ -287,6 +287,33 @@ def test_read_trace_measures_idle_gaps():
     assert empty["idle_share"] is None and empty["longest_gaps"] == []
 
 
+def test_read_trace_names_the_program_span_at_each_gap():
+    """Each gap also carries the innermost ``sspv.`` span around it (the
+    latest-starting one that contains its start): not a PyTorch op, not
+    another annotation, null outside the program."""
+    ev = lambda cat, name, ts, dur: {"ph": "X", "cat": cat, "name": name,
+                                     "ts": ts, "dur": dur}
+    events = [
+        ev("kernel", "k1", 100.0, 10.0),   # gap [110, 130] inside the call
+        ev("kernel", "k2", 130.0, 5.0),    # gap [135, 155] in the gate
+        ev("kernel", "k3", 155.0, 5.0),    # gap [160, 200] outside
+        ev("kernel", "k4", 200.0, 1.0),
+        ev("user_annotation", "ProfilerStep#1", 0.0, 300.0),
+        ev("user_annotation", "sspv.mesh.process_long_pitch", 90.0, 68.0),
+        ev("user_annotation", "sspv.mesh.gate", 132.0, 24.0),
+        ev("user_annotation", "someone.else", 111.0, 100.0),
+        ev("cpu_op", "aten::where", 134.0, 2.0),
+        ev("cpu_op", "aten::cat", 165.0, 10.0),
+    ]
+    r = roofline.read_trace(events, calls=1)
+    assert [g["gap_ms"] for g in r["longest_gaps"]] == [
+        pytest.approx(0.040), pytest.approx(0.020), pytest.approx(0.020)]
+    by_start = sorted(r["longest_gaps"], key=lambda g: g["at_ms"])
+    assert [g["program_span"] for g in by_start] == [
+        "sspv.mesh.process_long_pitch", "sspv.mesh.gate", None]
+    assert [g["host_op"] for g in by_start] == [None, "aten::where", None]
+
+
 def test_read_trace_refuses_a_trace_that_lost_kernels():
     """Four launches on the host, three kernels on the device: the
     profiler dropped one, so no device figure is given."""
