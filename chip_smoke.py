@@ -554,6 +554,16 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph (an
+    engine's first block of a size): a wrapper called then launches
+    nothing, and each replay of the graph runs the captured launch."""
+    import torch
+
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
 def reset_launches() -> None:
     from sspv_tpu_torch.ops import LAUNCHES, ROUTES
 
@@ -636,7 +646,8 @@ def recording(targets):
         wrapper = getattr(module, name)
 
         def rec(x, __wrapper=wrapper, **consts):
-            calls.append((x.clone(), consts))
+            if not capturing():
+                calls.append((x.clone(), consts))
             return __wrapper(x, **consts)
 
         saved.append((module, name, wrapper))
@@ -700,8 +711,9 @@ def recording_vad():
     wrapper = pipeline_mod.fused_streaming_vad
 
     def rec(energy, zcr, entropy, state, **kw):
-        calls.append(((energy.clone(), zcr.clone(), entropy.clone(),
-                       type(state)(*(t.clone() for t in state))), kw))
+        if not capturing():
+            calls.append(((energy.clone(), zcr.clone(), entropy.clone(),
+                           type(state)(*(t.clone() for t in state))), kw))
         return wrapper(energy, zcr, entropy, state, **kw)
 
     pipeline_mod.fused_streaming_vad = rec
@@ -724,6 +736,8 @@ def frames_on_card():
     k1, k3 = pipeline_mod.fused_view_features, pipeline_mod.fused_features
 
     def add(n: int) -> None:
+        if capturing():
+            return
         with lock:
             seen["frames"] += n
 
@@ -907,6 +921,22 @@ def engine_trace(device, sig16: np.ndarray, samples_dispatch: int,
     return out
 
 
+def replayed_frames(rt) -> dict:
+    """Count the frames of the blocks ``rt`` runs as graph replays (the
+    wrappers see none of them). Returns a dict whose ``"frames"`` holds
+    the count."""
+    seen = {"frames": 0}
+    if rt._graphs is not None:
+        replay = rt._graphs.replay
+
+        def counted(samples, n):
+            seen["frames"] += n
+            return replay(samples, n)
+
+        rt._graphs.replay = counted
+    return seen
+
+
 def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
                pitch: bool = False, record: str | None = None) -> dict:
     """One ``AudioRuntime`` run over an in-memory int16 source, read as fast
@@ -923,6 +953,7 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     Config.TPU_ENGINE_PITCH = pitch
     rt = AudioRuntime(audio_source=memory_source(sig16), device=device)
     require(rt._samples_dispatch == bool(samples_dispatch), "dispatch mode")
+    replayed = replayed_frames(rt)
     targets = [] if record is None else [
         (pipeline_mod, PIPELINE_WRAPPERS[record])]
     with recording(targets) as calls, recording_vad() as vad_calls, \
@@ -939,15 +970,18 @@ def run_engine(device, sig16: np.ndarray, samples_dispatch: int,
     launches = dict(LAUNCHES)
     mode = "samples" if samples_dispatch else "frames"
     print(f"engine ({mode} dispatch{', pitch' if pitch else ''}): "
-          f"{rt.frames_processed} frames in {rt.dispatch_count} dispatches, "
-          f"{seconds:.3f} s, launches " + json.dumps(launches))
+          f"{rt.frames_processed} frames in {rt.dispatch_count} dispatches "
+          f"({rt.graph_replays} graph replays), {seconds:.3f} s, launches "
+          + json.dumps(launches))
     require(rt.last_error is None, f"engine error: {rt.last_error!r}")
     require(not rt.is_running, "engine reached the end of its source")
     require(rt.frames_processed == n, f"engine frames {rt.frames_processed}")
-    require(launches["vad"] == rt.dispatch_count == len(vad_calls),
+    require(launches["vad"] == rt.dispatch_count
+            == len(vad_calls) + rt.graph_replays,
             f"engine ({mode}): K4 once per dispatch")
     audio_on_card(f"engine ({mode} dispatch{', pitch' if pitch else ''})",
-                  on_card["frames"], rt.frames_processed, len(sig16) / SR)
+                  on_card["frames"] + replayed["frames"], rt.frames_processed,
+                  len(sig16) / SR)
     return {"rt": rt, "launches": launches, "seconds": seconds,
             "calls": calls, "vad_calls": vad_calls}
 

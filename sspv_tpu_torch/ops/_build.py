@@ -15,6 +15,7 @@ launch never runs, and a later synchronize does not report it).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "LAUNCHES", "NVCC_FLAGS", "ROUTES", "build", "check",
-           "count", "library"]
+           "count", "library", "recording"]
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,6 +50,9 @@ ROUTES = {"frame_features_fft": 0, "frame_features_dense": 0,
 # Guards both dicts: threads of one server launch the kernels concurrently,
 # and a bare ``+= 1`` is a read-modify-write that can lose a count.
 _count_lock = threading.Lock()
+# Per thread: the list that ``recording`` collects this thread's counts in,
+# or None.
+_recorder = threading.local()
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -138,9 +142,28 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+@contextlib.contextmanager
+def recording():
+    """Collect the launches this thread counts in a list of ``(kernel,
+    route)``, in place of adding them to ``LAUNCHES`` and ``ROUTES``: a CUDA
+    graph's capture launches nothing, and each replay of the graph counts
+    what its capture collected."""
+    launches: list[tuple[str, str | None]] = []
+    _recorder.launches = launches
+    try:
+        yield launches
+    finally:
+        _recorder.launches = None
+
+
 def count(kernel: str, route: str | None = None) -> None:
     """Add one launch of ``kernel`` (and of its ``route``, a key of
-    ``ROUTES``) to the counts, under a lock."""
+    ``ROUTES``) to the counts, under a lock, or to this thread's
+    :func:`recording`."""
+    launches = getattr(_recorder, "launches", None)
+    if launches is not None:
+        launches.append((kernel, route))
+        return
     with _count_lock:
         LAUNCHES[kernel] += 1
         if route is not None:

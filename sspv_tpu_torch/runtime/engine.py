@@ -13,7 +13,8 @@ Internally the design is block-parallel instead of a per-frame Python loop:
 
 - a capture thread performs the blocking device/file reads (I/O needs a
   thread; that part of the reference architecture is sound);
-- the processing thread accumulates samples with a carried overlap tail
+- the processing thread sleeps until the capture thread appends audio
+  (a condition it signals), then accumulates samples with a carried overlap tail
   (streaming semantics: full frames only, engine.py:240-242), splits it
   at the top of a small set of bucket sizes, and dispatches each block at
   its own frame count (the JAX engine pads it to its bucket; here the
@@ -25,12 +26,21 @@ Internally the design is block-parallel instead of a per-frame Python loop:
   and for every geometry the view kernels do not take, the host frames the
   block and the frames path (kernel K3) runs;
 - dispatch is double-buffered: each dispatch enqueues its block's work on
-  the device's current stream, then a ``non_blocking`` copy of the packed
+  the engine's own CUDA stream, then a ``non_blocking`` copy of the packed
   block into pinned host memory, and records a ``torch.cuda.Event``; the
   block is read only when that event is done. Block k+1 is enqueued before
   block k is read back, so host framing, transfer and device compute overlap
   with readback — this replaces the reference's producer/consumer deque
   handoff (engine.py:90-103) as the concurrency mechanism;
+- on the card, a samples block of up to ``GRAPH_MAX_FRAMES`` frames (the
+  live cadence: a few frames a capture chunk) replays a CUDA graph of that
+  whole dispatch (:class:`_BlockGraphs`): one copy into pinned memory and
+  one launch in place of a dozen device operations reached through dozens
+  of eager PyTorch calls. The kernels, their arguments and their order are
+  the eager dispatch's, so a replayed block is bit-identical to it. Larger
+  blocks, the frames dispatch, pitch and the CPU run eagerly; every route
+  reads and writes one static packed-state buffer, so the VAD state passes
+  between them exactly;
 - per-frame results land in the same ``processed_data`` deque-of-dicts shape
   (keys ``energy, zcr, vad, spec_entropy, vad_adaptive, mfcc``,
   engine.py:302-311) so downstream consumers are unchanged.
@@ -42,9 +52,12 @@ float64, vads int32, spec_entropy/vads_adaptive float32, int32 scalars).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import logging
 import threading
 import time
+import weakref
 from collections import deque
 
 import numpy as np
@@ -53,6 +66,7 @@ import torch
 
 from ..config import Config
 from ..config import parse_buckets as _parse_buckets
+from ..ops import _build
 from ..ops.pipeline import FeatureConfig, FeaturePipeline
 from ..utils.framing import frame_i16_to_f32
 from ..utils.profiling import span
@@ -61,6 +75,17 @@ from .audio_source import AudioSource, PyAudioSource
 logger = logging.getLogger(__name__)
 
 __all__ = ["AudioRuntime"]
+
+# The longest the processing loop waits for audio before it looks at
+# is_running again. The capture thread wakes it at once whenever it appends
+# audio or ends, and stop() does, so this only bounds a flip of is_running
+# from outside.
+IDLE_WAIT_S = 0.1
+
+# Samples blocks of up to this many frames (the first stream bucket by
+# default) replay CUDA graphs on the card: one graph a size, so the bound
+# also bounds the graphs an engine holds.
+GRAPH_MAX_FRAMES = 32
 
 
 def _parse_flag(value, default: bool, name: str) -> bool:
@@ -79,11 +104,159 @@ def _parse_flag(value, default: bool, name: str) -> bool:
         return default
 
 
-def _host_bits(packed) -> np.ndarray:
-    """A packed VAD state (host array or device tensor) as a host array."""
+def _write_state(buf: torch.Tensor, packed) -> None:
+    """Write a packed VAD state (a host array or a tensor) into the static
+    buffer ``buf`` by raw bits, as int32: the last_voiced slot is an int32
+    bitcast into the f32 packed state, and some of its values alias
+    signaling-NaN f32 patterns that a float-typed copy could canonicalize
+    (shifting the value by ~4.2M)."""
     if isinstance(packed, torch.Tensor):
-        return packed.cpu().numpy()
-    return np.asarray(packed)
+        bits = packed.view(torch.int32)
+    else:
+        bits = torch.from_numpy(np.ascontiguousarray(packed).view(np.int32))
+    buf.view(torch.int32).copy_(bits)
+
+
+def _replays(device: torch.device, samples_dispatch: bool, pitch: bool,
+             n: int, limit: int) -> bool:
+    """Whether an ``n``-frame block takes the graph route: on the card, in
+    the samples dispatch without pitch, up to ``limit`` frames."""
+    return (device.type == "cuda" and samples_dispatch and not pitch
+            and 0 < n <= limit)
+
+
+# The raw handles of the streams live engines hold. PyTorch hands out the
+# streams of a fixed pool in turn, so a new engine could draw a live one's:
+# two engines on one stream would put one's eager work into the other's
+# capture.
+_claimed_streams: set[int] = set()
+_claimed_lock = threading.Lock()
+# draws from PyTorch's stream pool (32 streams a priority) before an engine
+# gives up on a stream of its own
+_STREAM_DRAWS = 64
+
+
+def _own_stream(device: torch.device):
+    """A stream of PyTorch's pool that no live engine holds, claimed for
+    the caller (released when the caller is collected), or None where all
+    are held."""
+    with _claimed_lock:
+        for _ in range(_STREAM_DRAWS):
+            stream = torch.cuda.Stream(device)
+            if stream.cuda_stream not in _claimed_streams:
+                _claimed_streams.add(stream.cuda_stream)
+                return stream
+    return None
+
+
+# Captures under way in this process, and whether the collector was
+# enabled before the first of them (_collector_paused).
+_captures = {"count": 0, "enabled": False}
+_captures_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Keep the garbage collector off while any engine captures: a
+    collection runs in the thread that allocates, and one inside a capture
+    that frees a graph, an event or pinned memory makes a CUDA call that
+    the capture forbids, which invalidates it."""
+    with _captures_lock:
+        if _captures["count"] == 0:
+            _captures["enabled"] = gc.isenabled()
+            gc.disable()
+        _captures["count"] += 1
+    try:
+        yield
+    finally:
+        with _captures_lock:
+            _captures["count"] -= 1
+            if _captures["count"] == 0 and _captures["enabled"]:
+                gc.enable()
+
+
+class _BlockGraphs:
+    """One engine's samples dispatch of small blocks as CUDA graphs.
+
+    The graph of ``n``-frame blocks holds, in order: the upload of the
+    first samples of a pinned staging buffer into a device buffer,
+    ``process_signal_packed`` on them with the engine's packed-state buffer
+    (K1 and K4 with the bucket's VAD order, the pack and ``pack_state``),
+    the copy of the new state into that buffer, and the readback of the
+    packed block into pinned host memory. A block then costs one copy of its
+    samples into the staging buffer and one replay. The first block of each
+    size runs eagerly, which caches what a first call builds on the host;
+    the graphs of that size are captured after it (:meth:`capture`).
+
+    Two slots alternate, each with its own staging and readback memory, its
+    event and its graph of each size: the engine keeps at most one block in
+    flight, so a slot's block is published before the slot's next replay
+    rewrites its readback memory. The graphs of one engine share one memory
+    pool: they run one at a time on the engine's stream, and nothing they
+    allocate outlives a replay."""
+
+    SLOTS = 2
+
+    def __init__(self, pipeline: FeaturePipeline, state: torch.Tensor,
+                 stream, max_frames: int):
+        c = pipeline.cfg
+        self.pipeline, self.state, self.stream = pipeline, state, stream
+        self.pool = torch.cuda.graph_pool_handle()
+        samples = (max_frames - 1) * c.hop_size + c.frame_size
+        cols = pipeline.PACKED_PREFIX_COLS + c.num_ceps
+        self.staging = [torch.empty(samples, dtype=torch.int16, pin_memory=True)
+                        for _ in range(self.SLOTS)]
+        self._staging_np = [t.numpy() for t in self.staging]
+        self.host = [torch.empty((max_frames, cols), pin_memory=True)
+                     for _ in range(self.SLOTS)]
+        self.done = [torch.cuda.Event() for _ in range(self.SLOTS)]
+        # (n, slot) -> (graph, the launches its capture counted)
+        self.graphs: dict[tuple[int, int], tuple] = {}
+        self.slot = 0
+
+    def ready(self, n: int) -> bool:
+        return (n, 0) in self.graphs
+
+    def capture(self, n: int, route_frames: int) -> None:
+        """Capture the graphs of ``n``-frame blocks, one a slot, on the
+        engine's stream (the caller's current stream), after that stream's
+        work is done. Other engines capture and dispatch in their own
+        threads meanwhile: the capture's error mode is thread-local."""
+        c = self.pipeline.cfg
+        length = (n - 1) * c.hop_size + c.frame_size
+        self.stream.synchronize()
+        for slot in range(self.SLOTS):
+            graph = torch.cuda.CUDAGraph()
+            with _collector_paused(), _build.recording() as launches:
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    x = torch.empty(length, dtype=torch.int16,
+                                    device=self.state.device)
+                    x.copy_(self.staging[slot][:length], non_blocking=True)
+                    out, new = self.pipeline.process_signal_packed(
+                        x, self.state, length, route_frames=route_frames)
+                    _write_state(self.state, new)
+                    self.host[slot][:n].copy_(out, non_blocking=True)
+                finally:
+                    graph.capture_end()
+            self.graphs[n, slot] = graph, tuple(launches)
+
+    def replay(self, samples: np.ndarray, n: int):
+        """Run an ``n``-frame block of int16 samples through its graph.
+        Returns ``(host block, event)``, the event recorded after the
+        replay; each replay counts the launches its capture counted."""
+        slot = self.slot
+        self.slot = (slot + 1) % self.SLOTS
+        graph, launches = self.graphs[n, slot]
+        done = self.done[slot]
+        done.synchronize()  # the slot's last replay has read its staging
+        self._staging_np[slot][: len(samples)] = samples
+        graph.replay()
+        done.record(self.stream)
+        for kernel, route in launches:
+            _build.count(kernel, route)
+        return self.host[slot][:n], done
 
 
 def _default_mic_source() -> PyAudioSource:
@@ -159,10 +332,16 @@ class AudioRuntime:
         self.last_error: Exception | None = None
         self.auto_stop_on_eof: bool = False
         self.lock = threading.Lock()
+        # signalled (under ``lock``) when audio is appended to the backlog,
+        # when the capture thread ends and on stop(): the idle processing
+        # loop waits on it instead of polling
+        self._audio_ready = threading.Condition(self.lock)
         # Device dispatches since construction (one packed program per
         # increment): soak harnesses log memory against it and measure the
         # effect of TPU_MIN_DISPATCH_INTERVAL coalescing.
         self.dispatch_count = 0
+        # Of those, the ones that replayed a CUDA graph (_BlockGraphs).
+        self.graph_replays = 0
         # Monotonic count of frames materialized to the host since
         # construction (unlike ``processed_data``, never trimmed) — lets
         # serving harnesses track completion/throughput without polling the
@@ -174,13 +353,31 @@ class AudioRuntime:
         self._pending: list[np.ndarray] = []  # captured, not yet processed
         self._pending_samples = 0
         self._update_max_pending()
-        # Streaming VAD state, packed into ONE f32 buffer (ops/vad.py
-        # pack_state): after the first dispatch it lives on the device and
-        # never round-trips.
-        self._vad_state_packed = self.pipeline.initial_packed_state()
+        # Every dispatch runs on the engine's own stream, so graphed and
+        # eager blocks stay in order against the state. None on the CPU, and
+        # where every stream of PyTorch's pool is another live engine's:
+        # that engine then runs eagerly on the current stream.
+        dev = self.pipeline.device
+        self._stream = _own_stream(dev) if dev.type == "cuda" else None
+        if self._stream is not None:
+            weakref.finalize(self, _claimed_streams.discard,
+                             self._stream.cuda_stream)
+        # Streaming VAD state, packed into ONE static f32 buffer on the
+        # pipeline's device (ops/vad.py pack_state) that every dispatch
+        # reads and overwrites: it never round-trips.
+        self._vad_state_packed = torch.empty(
+            self.pipeline.initial_packed_state().shape, dtype=torch.float32,
+            device=dev)
+        with torch.cuda.stream(self._stream):
+            _write_state(self._vad_state_packed,
+                         self.pipeline.initial_packed_state())
         self._buckets = _parse_buckets(
             getattr(Config, "TPU_STREAM_BUCKETS", (32, 256, 2048))
         )
+        self._graph_frames = min(self._buckets[0], GRAPH_MAX_FRAMES)
+        self._graphs = (_BlockGraphs(self.pipeline, self._vad_state_packed,
+                                     self._stream, self._graph_frames)
+                        if self._stream is not None else None)
         # Low-latency mode: no in-flight block (each dispatch is materialized
         # immediately) + the JAX engine's extra small bucket, which there
         # spares a near-real-time cadence (a handful of frames per capture
@@ -284,15 +481,14 @@ class AudioRuntime:
             self.audio_display_buffer.clear()
             self._display_samples = 0
         # reset history, keep hangover distance: the last_voiced slot is an
-        # int32 bitcast into the f32 packed state, so the copy must move raw
-        # bits — an int32-view assignment, never a float assignment (some
-        # last_voiced values alias signaling-NaN f32 patterns that a
-        # float-typed copy could canonicalize, shifting the value by ~4.2M)
+        # int32 bitcast into the f32 packed state, so both copies move raw
+        # bits (_write_state); on the engine's stream, after its work
         fresh = self.pipeline.initial_packed_state()
-        fresh.view(np.int32)[-1] = (
-            _host_bits(self._vad_state_packed).view(np.int32)[-1]
-        )
-        self._vad_state_packed = fresh
+        with torch.cuda.stream(self._stream):
+            fresh.view(np.int32)[-1] = (
+                self._vad_state_packed.cpu().numpy().view(np.int32)[-1]
+            )
+            _write_state(self._vad_state_packed, fresh)
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -323,6 +519,7 @@ class AudioRuntime:
         # draining its in-flight block — callers expect stop() to return only
         # once results are final.
         self.is_running = False
+        self._wake()
         for t in (self._capture_thread, self._process_thread):
             if t is not None and t.is_alive():
                 t.join()
@@ -332,6 +529,11 @@ class AudioRuntime:
     # ------------------------------------------------------------------
     # threads
     # ------------------------------------------------------------------
+
+    def _wake(self) -> None:
+        """Wake a processing loop that waits for audio."""
+        with self._audio_ready:
+            self._audio_ready.notify_all()
 
     def _capture_loop(self) -> None:
         opened = False
@@ -364,6 +566,7 @@ class AudioRuntime:
                 with self.lock:
                     self._pending.append(arr)
                     self._pending_samples += len(arr)
+                    self._audio_ready.notify_all()
                     self.audio_display_buffer.append(arr.copy())
                     self._display_samples += len(arr)
                     # evict whole chunks while the window stays full
@@ -387,6 +590,7 @@ class AudioRuntime:
                     self.audio_source.close()
             except Exception:
                 pass
+            self._wake()
 
     def _take_frames(self, carry: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Pull pending samples, return (raw frame block, new carry)."""
@@ -441,29 +645,26 @@ class AudioRuntime:
 
     def _dispatch(self, frames: np.ndarray):
         """Enqueue one packed device program on the block's own frames and
-        the readback of its block (non-blocking). Packed I/O: frames + one
-        packed-state buffer in, one packed block out (the new state never
-        leaves the device). The block's bucket, the shape the JAX engine
-        pads it to, sets only the VAD's summation order. Returns what
+        the readback of its block (non-blocking), on the engine's stream.
+        Packed I/O: frames + the packed-state buffer in, one packed block
+        out (the new state overwrites the buffer and never leaves the
+        device). The block's bucket, the shape the JAX engine pads it to,
+        sets only the VAD's summation order. Returns what
         :meth:`_materialize` takes: ``(host block, event, frames, the
         block's request id)``.
         """
-        with span("sspv.engine.dispatch") as req:
+        with (span("sspv.engine.dispatch") as req,
+              torch.cuda.stream(self._stream)):
             n = frames.shape[0]
             bucket = self._bucket_for(n)
             if self._pitch_enabled:
-                out, self._vad_state_packed = (
-                    self.pipeline.process_block_packed_pitch(
-                        frames, self._vad_state_packed, n,
-                        self._pitch_min_conf, route_frames=bucket,
-                    )
-                )
+                out, new = self.pipeline.process_block_packed_pitch(
+                    frames, self._vad_state_packed, n, self._pitch_min_conf,
+                    route_frames=bucket)
             else:
-                out, self._vad_state_packed = (
-                    self.pipeline.process_block_packed(
-                        frames, self._vad_state_packed, n, route_frames=bucket
-                    )
-                )
+                out, new = self.pipeline.process_block_packed(
+                    frames, self._vad_state_packed, n, route_frames=bucket)
+            _write_state(self._vad_state_packed, new)
             self.dispatch_count += 1
             return (*self._start_readback(out), n, req)
 
@@ -471,26 +672,36 @@ class AudioRuntime:
         """Enqueue one packed device program on an int16 sample block of
         whole frames and its readback (non-blocking), with the VAD order of
         the block's bucket (in frames, the same ``TPU_STREAM_BUCKETS`` set
-        as the frames layout), as :meth:`_dispatch`."""
-        with span("sspv.engine.dispatch") as req:
+        as the frames layout), as :meth:`_dispatch`. A block that takes the
+        graph route (:func:`_replays`) replays the graph of its size, once
+        one block of that size has run eagerly and the graphs are captured
+        (:class:`_BlockGraphs`)."""
+        with (span("sspv.engine.dispatch") as req,
+              torch.cuda.stream(self._stream)):
             n = 1 + (len(samples) - self.frame_size) // self.hop_size
             bucket = self._bucket_for(n)
-            if self._pitch_enabled:
-                out, self._vad_state_packed = (
-                    self.pipeline.process_signal_packed_pitch(
-                        samples, self._vad_state_packed, len(samples),
-                        self._pitch_min_conf, route_frames=bucket,
-                    )
-                )
+            graphed = self._graphs is not None and _replays(
+                self.pipeline.device, self._samples_dispatch,
+                self._pitch_enabled, n, self._graph_frames)
+            if graphed and self._graphs.ready(n):
+                with span("sspv.engine.replay"):
+                    host, done = self._graphs.replay(samples, n)
+                self.graph_replays += 1
             else:
-                out, self._vad_state_packed = (
-                    self.pipeline.process_signal_packed(
+                if self._pitch_enabled:
+                    out, new = self.pipeline.process_signal_packed_pitch(
                         samples, self._vad_state_packed, len(samples),
-                        route_frames=bucket,
-                    )
-                )
+                        self._pitch_min_conf, route_frames=bucket)
+                else:
+                    out, new = self.pipeline.process_signal_packed(
+                        samples, self._vad_state_packed, len(samples),
+                        route_frames=bucket)
+                _write_state(self._vad_state_packed, new)
+                host, done = self._start_readback(out)
+                if graphed:
+                    self._graphs.capture(n, bucket)
             self.dispatch_count += 1
-            return (*self._start_readback(out), n, req)
+            return host, done, n, req
 
     def _materialize(self, inflight) -> None:
         """Wait for one dispatched block's readback (its event) and publish
@@ -558,6 +769,14 @@ class AudioRuntime:
             with span("sspv.engine.poll_wait"):
                 time.sleep(Config.THREAD_SLEEP_TIME)
 
+        def wait_for_audio():
+            """Wait until the capture thread appends audio or ends, or the
+            engine stops: one wake a capture chunk, where 1 ms polls woke
+            some sixty times (each wake costs the host CPU)."""
+            with span("sspv.engine.poll_wait"), self._audio_ready:
+                if not self._pending and self.is_running:
+                    self._audio_ready.wait(IDLE_WAIT_S)
+
         def dispatch_split(payload, n, inflight):
             """Dispatch ``payload`` in <=max_bucket-frame slices, keeping
             exactly one block in flight (pipelining preserved). In low-latency mode nothing stays in flight: results
@@ -594,7 +813,7 @@ class AudioRuntime:
                     if inflight is not None:
                         self._materialize(inflight)
                         inflight = None
-                    poll_wait()
+                    wait_for_audio()
                     continue
                 last_dispatch = time.monotonic()
                 inflight = dispatch_split(payload, n, inflight)

@@ -27,6 +27,7 @@ from sspv_tpu_torch.ops import vad_kernels
 from sspv_tpu_torch.ops import view_kernels as vk
 from sspv_tpu_torch.ops.pipeline import FeatureConfig, FeaturePipeline
 
+import engine_blocks
 import vad_inputs
 
 REPO = Path(__file__).resolve().parents[1]
@@ -545,6 +546,123 @@ def test_engine_on_cuda_matches_cpu(monkeypatch, samples_dispatch, kernel):
     np.testing.assert_array_equal(got["vad"], want["vad"])
     for k in ("energy", "spec_entropy", "mfcc"):
         assert _nmse(got[k], want[k]) <= 1e-9, k
+
+
+def _launch_counts():
+    return dict(_build.LAUNCHES), dict(_build.ROUTES)
+
+
+def _launch_delta(before):
+    return ({k: v - before[0][k] for k, v in _build.LAUNCHES.items()},
+            {k: v - before[1][k] for k, v in _build.ROUTES.items()})
+
+
+@pytest.mark.cuda
+def test_engine_graph_replays_equal_the_eager_dispatch():
+    """An engine's samples dispatch on the card over graphed sizes (6, 7,
+    1, 32, repeated), an eager block of 40 frames and a source reset
+    publishes blocks, and leaves a state, bit-identical to a chain of eager
+    ``process_signal_packed`` calls on the same blocks; each size after its
+    first replays a graph, and the replays count the launches and routes
+    the eager chain counts."""
+    from sspv_tpu_torch import AudioRuntime
+
+    dev = _device("cuda")
+    pipe = FeaturePipeline(device=dev)
+    sig = engine_blocks.signal(seed=1)
+    before = _launch_counts()
+    want, want_state = engine_blocks.eager_chain(pipe, sig)
+    torch.cuda.synchronize()
+    eager = _launch_delta(before)
+    rt = AudioRuntime(audio_source=_MemorySource(sig), pipeline=pipe,
+                      device=dev)
+    before = _launch_counts()
+    got, got_state = engine_blocks.engine_run(rt, sig)
+    assert _launch_delta(before) == eager
+    assert eager[0]["view_features"] == eager[0]["vad"] == len(got)
+    assert rt.graph_replays == engine_blocks.expected_replays() > 0
+    assert rt.dispatch_count == len(engine_blocks.SIZES)
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"block {k}")
+    np.testing.assert_array_equal(got_state, want_state)
+
+
+@pytest.mark.cuda
+def test_engines_capture_concurrently():
+    """Three engines over one pipeline, each in its own thread, capture
+    their graphs while the others dispatch: every engine's blocks and state
+    equal its eager chain bit for bit, and the launches of the three runs
+    are three times one chain's."""
+    import threading
+
+    from sspv_tpu_torch import AudioRuntime
+
+    dev = _device("cuda")
+    pipe = FeaturePipeline(device=dev)
+    sigs = [engine_blocks.signal(seed=s) for s in (2, 3, 4)]
+    before = _launch_counts()
+    want = [engine_blocks.eager_chain(pipe, sig) for sig in sigs]
+    torch.cuda.synchronize()
+    eager = _launch_delta(before)
+    engines = [AudioRuntime(audio_source=_MemorySource(sig), pipeline=pipe,
+                            device=dev) for sig in sigs]
+    got, errors = [None] * 3, []
+    start = threading.Barrier(3)
+
+    def run(i):
+        try:
+            start.wait()
+            got[i] = engine_blocks.engine_run(engines[i], sigs[i])
+        except Exception as e:  # reported below, in the test's thread
+            errors.append(e)
+
+    before = _launch_counts()
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not errors, errors
+    assert _launch_delta(before) == eager
+    for rt, (g, g_state), (w, w_state) in zip(engines, got, want):
+        assert rt.graph_replays == engine_blocks.expected_replays()
+        for k, (a, b) in enumerate(zip(g, w)):
+            np.testing.assert_array_equal(a, b, err_msg=f"block {k}")
+        np.testing.assert_array_equal(g_state, w_state)
+
+
+@pytest.mark.cuda
+def test_engines_hold_streams_of_their_own():
+    """More live engines than PyTorch's pool has streams (32 a priority):
+    no two hold one stream (one's eager work would join the other's
+    capture); those left without one run eagerly on the current stream,
+    with no graphs, and still equal the eager chain bit for bit."""
+    import gc
+
+    from sspv_tpu_torch import AudioRuntime
+
+    dev = _device("cuda")
+    pipe = FeaturePipeline(device=dev)
+    sig = engine_blocks.signal(seed=5)
+    want, want_state = engine_blocks.eager_chain(pipe, sig)
+    engines = [AudioRuntime(audio_source=_MemorySource(sig), pipeline=pipe,
+                            device=dev) for _ in range(40)]
+    spare = []
+    try:
+        held = [rt._stream.cuda_stream for rt in engines
+                if rt._stream is not None]
+        assert len(held) == len(set(held))
+        spare = [rt for rt in engines if rt._stream is None]
+        assert spare and all(rt._graphs is None for rt in spare)
+        got, got_state = engine_blocks.engine_run(spare[0], sig)
+        assert spare[0].graph_replays == 0
+        for k, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g, w, err_msg=f"block {k}")
+        np.testing.assert_array_equal(got_state, want_state)
+    finally:
+        engines.clear()
+        spare.clear()
+        gc.collect()  # the engines give their streams back
 
 
 @pytest.mark.cuda

@@ -40,8 +40,10 @@ from sspv_tpu_torch.ops.pipeline import FeaturePipeline
 from sspv_tpu_torch.ops.pitch import pitch_track
 from sspv_tpu_torch.runtime import AudioRuntime as TRuntime
 from sspv_tpu_torch.runtime import audio_source as tsrc
+from sspv_tpu_torch.runtime import engine as tengine
 from sspv_tpu_torch.utils.framing import frame_i16_to_f32
 
+import engine_blocks
 import oracle
 
 SR = 16000
@@ -399,3 +401,138 @@ def test_int16_framing_equals_jax(frame, hop, n):
     w = np.hanning(frame).astype(np.float32)
     np.testing.assert_array_equal(frame_i16_to_f32(sig, frame, hop, w),
                                   j_frame_i16_to_f32(sig, frame, hop, w))
+
+
+# (device, samples dispatch, pitch, frames) -> the graph route, at the
+# default limit of 32 frames
+GRAPH_ROUTES = {
+    "card_samples_6": ("cuda", True, False, 6, True),
+    "card_samples_32": ("cuda", True, False, 32, True),
+    "card_samples_33": ("cuda", True, False, 33, False),
+    "card_frames": ("cuda", False, False, 6, False),
+    "card_pitch": ("cuda", True, True, 6, False),
+    "cpu": ("cpu", True, False, 6, False),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAPH_ROUTES))
+def test_graph_route_decision(case):
+    """A block replays a CUDA graph on the card, in the samples dispatch
+    without pitch, up to the limit; every other block runs eagerly."""
+    device, samples, pitch, n, want = GRAPH_ROUTES[case]
+    assert tengine._replays(torch.device(device), samples, pitch, n, 32) is want
+
+
+@pytest.mark.parametrize("buckets,low_latency,limit", [
+    ((32, 256, 2048), 0, 32), ((32, 256, 2048), 1, 32), ((8, 16), 0, 8),
+    ((64, 256), 0, 32)])
+def test_graph_route_limit(both_configs, buckets, low_latency, limit):
+    """The graph route's limit is the first configured bucket, at most 32
+    frames; the low-latency 8 added before it does not lower it. On the
+    CPU the engine holds no graphs."""
+    both_configs("TPU_STREAM_BUCKETS", buckets)
+    both_configs("TPU_LOW_LATENCY", low_latency)
+    rt = TRuntime(audio_source=DummyAudioSource(speech(0.1)), device="cpu")
+    assert rt._graph_frames == limit
+    assert rt._graphs is None and rt._stream is None
+
+
+def test_cpu_engine_replays_nothing(both_configs):
+    """On the CPU the samples dispatch of graphed sizes, a block past the
+    limit and a source reset publish the blocks and leave the state of a
+    chain of eager ``process_signal_packed`` calls, bit for bit, and
+    nothing replays."""
+    pipe = FeaturePipeline(device="cpu")
+    sig = engine_blocks.signal(seed=3)
+    want, want_state = engine_blocks.eager_chain(pipe, sig)
+    rt = TRuntime(audio_source=DummyAudioSource(sig), pipeline=pipe,
+                  device="cpu")
+    got, got_state = engine_blocks.engine_run(rt, sig)
+    assert rt.graph_replays == 0
+    assert rt.dispatch_count == len(engine_blocks.SIZES) == len(got)
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"block {k}")
+    np.testing.assert_array_equal(got_state, want_state)
+    # the frame dicts after the reset are those blocks' rows
+    tail = np.concatenate(want[engine_blocks.RESET_AT:]).view(np.float32)
+    rows = list(rt.processed_data)
+    assert rt.frames_processed == sum(engine_blocks.SIZES)
+    assert [d["energy"] for d in rows] == tail[:, 0].tolist()
+    assert [d["mfcc"] for d in rows] == tail[:, 5:].tolist()
+
+
+# int32 last_voiced values whose float32 bits are NaN patterns (signaling
+# and quiet, both signs), and an ordinary one
+NAN_PATTERNS = [0x7F800001, 0x7FA00000, -8388607, -4, 57]
+
+
+@pytest.mark.parametrize("last", NAN_PATTERNS)
+@pytest.mark.parametrize("source", ["array", "tensor"])
+def test_write_state_keeps_last_voiced_bits(last, source):
+    """The state helper writes a packed state into the static buffer as
+    raw bits: a NaN-pattern last_voiced comes back bit for bit."""
+    packed = FeaturePipeline(device="cpu").initial_packed_state()
+    packed.view(np.int32)[-1] = last
+    src = packed if source == "array" else torch.from_numpy(packed.copy())
+    buf = torch.full(packed.shape, float("nan"))
+    tengine._write_state(buf, src)
+    assert buf.numpy().view(np.int32)[-1] == last
+    np.testing.assert_array_equal(buf.numpy().view(np.int32),
+                                  packed.view(np.int32))
+
+
+@pytest.mark.parametrize("last", NAN_PATTERNS)
+def test_set_audio_source_keeps_nan_pattern_hangover(both_configs, last):
+    """A source reset keeps a NaN-pattern last_voiced of the static state
+    buffer bit for bit and clears the rest."""
+    rt = TRuntime(audio_source=DummyAudioSource(speech(0.1)), device="cpu")
+    rt._vad_state_packed.view(torch.int32)[-1] = last
+    rt._vad_state_packed[:8] = 1.0
+    rt.set_audio_source(DummyAudioSource(speech(0.1)))
+    bits = rt._vad_state_packed.numpy().view(np.int32)
+    assert bits[-1] == last and bits[-2] == 0 and not bits[:-2].any()
+
+
+def test_idle_loop_waits_for_audio_without_polling(both_configs, monkeypatch):
+    """The idle processing loop sleeps until the capture thread appends a
+    chunk (it signals a condition), not in 1 ms polls: over a source that
+    delivers a chunk every 10 ms it sleeps only while it drains at the
+    end, and every frame is published."""
+    counts = {"loop": 0}
+
+    class Clock:
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        @staticmethod
+        def sleep(s):
+            if "_process_loop" in threading.current_thread().name:
+                counts["loop"] += 1
+            time.sleep(s)
+
+    monkeypatch.setattr(tengine, "time", Clock())
+    sig = speech(0.5)
+    rt = TRuntime(audio_source=DummyAudioSource(sig, read_delay_s=0.01),
+                  device="cpu")
+    _run_to_eof(rt)
+    assert rt.frames_processed == 1 + (len(sig) - 320) // 160
+    assert counts["loop"] < 10, counts  # 1 ms polls: ~100 here
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_paused_nests(enabled):
+    """Captures pause the garbage collector while any is under way, and
+    leave it as they found it."""
+    import gc
+
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with tengine._collector_paused():
+            assert not gc.isenabled()
+            with tengine._collector_paused():
+                assert not gc.isenabled()
+            assert not gc.isenabled()
+        assert gc.isenabled() is enabled
+    finally:
+        (gc.enable if was else gc.disable)()
