@@ -205,6 +205,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
     from the configuration and the frame count). The mesh wrappers'
     bounds are K1's and K2's at the same shape.
 
+16. runs K5, the rows resampler of the batch programs (``k5_runs``), on
+    the hour recorded at 48 kHz as Whisper's 120 windows of 30 s (the
+    benchmark's speech, the last window 17 s and zero-padded): one launch,
+    equal to its plain version on the card (float64 both) on at least
+    1 - 1e-6 of the outputs and by one LSB where not, zero past each row's
+    own length; timed (CUDA events, median of 10) beside the plain version,
+    one float64 ``F.conv1d`` of the same sum (a yardstick the port never
+    calls) and its bound (``portbench/readers/resample_roofline.work``);
+    then ``process_batch_masked(..., source_rate=48000)`` on the hour: one
+    launch each of K5, K3 and K4 and none else (every count, reset before
+    the call; the ``kernels`` line's K5 ``launches``), bit for bit the same
+    call on K5's 16 kHz rows, and its time
+    beside that call's; then the control: ``csrc/resample.cu`` built alone
+    with float32 sums (``-DSSPV_K5_ACC=float``) on one batch of 64 windows,
+    its outputs that differ from K5's counted, and ``process_batch_masked``
+    of its rows must fail the benchmark's comparison
+    (``portbench/reference``: ``features_nmse`` <= 1e-9, ``vad_mismatch``
+    0) where K5's rows pass it.
+
 Any failed check raises. The last lines are the card, one JSON object with
 every kernel's launches, error, times and bound, and the
 ``{"ok": true, "device": ...}`` summary.
@@ -1286,7 +1305,8 @@ def gap_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
         FeaturePipeline(cfg640, device=device), cfg640, clip, label640,
         [[(pipeline_mod, "fused_features")]])
     require(run640["launches"] == {"view_features": 0, "view_pitch": 1,
-                                   "frame_features": 1, "vad": 1}
+                                   "frame_features": 1, "vad": 1,
+                                   "resample": 0}
             and run640["routes"]["frame_features_dense"] == 1,
             f"{label640}: K3 (dense route) for the features, K2 for the pitch")
     calls_parity("frame_features", run640["calls"][0], err, label640,
@@ -1555,7 +1575,7 @@ def dense_runs(device, sig: np.ndarray, err: dict, card: str,
     print(f"{label} frames path on the hour: launches " + json.dumps(launches)
           + " K3 routes " + json.dumps(routes))
     require(launches == {"view_features": 0, "view_pitch": 0,
-                         "frame_features": 1, "vad": 1}
+                         "frame_features": 1, "vad": 1, "resample": 0}
             and routes["frame_features_dense"] == 1,
             f"{label}: one dense K3 launch and one K4 launch")
     vad_calls_parity(vad_calls, err, label, expected=1)
@@ -1906,14 +1926,15 @@ def resample_by_conv1d(x, up: int, down: int):
     """The resampler's strided correlation spelt as one ``F.conv1d``
     (``stride=down``, ``up`` output channels, the ``(up, 1, W)`` weights) in
     full float32: a yardstick for ``ops.resample._correlate``, which the
-    port never calls. ``x`` is a float32 ``(B, L)`` batch on the card."""
+    port never calls. ``x`` is a float32 (or float64) ``(B, L)`` batch on
+    the card; the weights take its dtype."""
     import torch
 
     from sspv_tpu_torch.ops import resample
     from sspv_tpu_torch.ops.fp32 import full_fp32
 
     weights, s_lo, n_pre_remove = resample._polyphase_kernel(up, down)
-    w = torch.from_numpy(weights.T.copy()).to(x.device)[:, None, :]
+    w = torch.from_numpy(weights.T.copy()).to(x.device, x.dtype)[:, None, :]
     n_out = resample.resample_output_len(x.shape[1], up, down)
     groups = -(-(n_pre_remove + n_out) // up)
     total = (groups - 1) * down + w.shape[2]
@@ -2322,7 +2343,7 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
         slices = [pcm[i * n60 : (i + 1) * n60] for i in range(max(SERVE_CLIENTS))]
         wavs = [wav_bytes(s) for s in slices]
         k1 = {"view_features": 1, "view_pitch": 0, "frame_features": 0,
-              "vad": 1}
+              "vad": 1, "resample": 0}
         k12 = dict(k1, view_pitch=1)
         routes = {"/v1/features": (False, k1), "/v1/vad": (False, k1),
                   "/v1/pitch": (True, k12)}
@@ -2431,7 +2452,7 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
                       len(head) / SR)
         require(launches == direct_launches and launches == {
             "view_features": 0, "view_pitch": 0,
-            "frame_features": len(want), "vad": len(want)},
+            "frame_features": len(want), "vad": len(want), "resample": 0},
             "stream: one K3 and one K4 launch per dispatch")
         out["stream_audio_s_per_s"] = SERVE_LONG_SECONDS / stream_s
 
@@ -2472,7 +2493,7 @@ def serve_runs(device, sig: np.ndarray, err: dict, card: str) -> dict:
             require(same, f"{clients} clients: responses equal the serial ones")
             require(launches == {"view_features": len(paths),
                                  "view_pitch": n_pitch, "frame_features": 0,
-                                 "vad": len(paths)},
+                                 "vad": len(paths), "resample": 0},
                     f"{clients} clients: the launch counts add up")
     finally:
         Config.TPU_DEVICE_RESAMPLE = saved_resample
@@ -3291,6 +3312,160 @@ def tools_runs(device, pipe, main: dict, pipe400, frames_run,
     return traces
 
 
+K5_SECONDS = 3600  # the hour at 48 kHz, as 30 s windows
+K5_RATE = 48000
+K5_WINDOW_S = 30
+K5_CONTROL_ROWS = 64  # one batch of the benchmark's 48 kHz cell
+K5_EQUAL = 1 - 1e-6  # share of outputs equal to the plain version's
+K5_REPS = 10
+
+
+def k5_control_library():
+    """``csrc/resample.cu`` alone, with float32 sums, built into
+    ``build/k5_control/`` and loaded: the control's kernel."""
+    import ctypes
+
+    from sspv_tpu_torch.ops import _build
+
+    out = ROOT / "build" / "k5_control" / "libk5_float.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-DSSPV_K5_ACC=float", "-shared",
+         "-o", str(out), str(ROOT / "sspv_tpu_torch" / "csrc" / "resample.cu")],
+        capture_output=True, text=True)
+    require(res.returncode == 0, f"the float32 control builds: {res.stderr}")
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.sspv_resample_rows.argtypes = [p, p, i, i, i, p, i, i, i, i, i, p, p]
+    lib.sspv_resample_rows.restype = i
+    return lib
+
+
+def k5_runs(device, card: str) -> dict:
+    """K5 on the hour at 48 kHz, the batch program over it, and the
+    float32-sum control (item 16 of the module's docstring)."""
+    import torch
+
+    from portbench.harness.audio import speech
+    from portbench.readers.resample_roofline import work
+    from portbench.reference import resample as ref_resample
+    from portbench.reference.compare import Comparison
+    from portbench.yardstick.work import bound_s
+    from sspv_tpu_torch.ops import LAUNCHES, resample
+    from sspv_tpu_torch.ops.pipeline import FeatureConfig
+    from sspv_tpu_torch.parallel import BatchPipeline, make_mesh
+
+    up, down = resample._reduce_ratio(SR, K5_RATE)
+    seg = K5_WINDOW_S * K5_RATE
+    rows = K5_SECONDS // K5_WINDOW_S
+    gen = torch.Generator(device=device)
+    gen.manual_seed(20)
+    lengths = np.full(rows, seg, np.int64)
+    lengths[-1] = 17 * K5_RATE + 1
+    x = speech(rows * seg, K5_RATE, gen, FLOOR_RMS).reshape(rows, seg)
+    x[torch.arange(seg, device=device)[None, :]
+      >= torch.from_numpy(lengths).to(device)[:, None]] = 0
+    lens = torch.from_numpy(lengths.astype(np.int32)).to(device)
+    own = -(-lengths * up // down)
+
+    before = LAUNCHES["resample"]
+    y = resample.resample_rows_int16(x, lens, up, down)
+    sync(device)
+    require(LAUNCHES["resample"] == before + 1, "K5: one launch a call")
+    want = resample.plain_resample_rows_int16(x, lens, up, down)
+    diff = (y.to(torch.int32) - want.to(torch.int32)).abs()
+    equal = 1.0 - float((diff > 0).sum()) / diff.numel()
+    max_diff = int(diff.max())
+    past = (torch.arange(y.shape[1], device=device)[None, :]
+            >= torch.from_numpy(own).to(device)[:, None])
+    print(f"K5 on the hour at {K5_RATE} Hz ({rows} x {K5_WINDOW_S} s): "
+          f"{equal:.9f} of {diff.numel()} outputs equal to the plain "
+          f"version, max |diff| {max_diff} LSB")
+    require(equal >= K5_EQUAL and max_diff <= 1
+            and not bool(y[past].any()),
+            "K5 equals its plain version (1 - 1e-6, one LSB), 0 past each row")
+    del want, diff
+
+    ms = median_ms(lambda: resample.resample_rows_int16(x, lens, up, down),
+                   K5_REPS)
+    plain_ms = median_ms(
+        lambda: resample.plain_resample_rows_int16(x, lens, up, down), 3)
+    conv_ms = median_ms(lambda: resample_by_conv1d(
+        x.to(torch.float64), up, down), 3)
+    ops, nbytes = work({"source_samples": int(lengths.sum()),
+                        "outputs": int(own.sum()), "up": up, "down": down})
+    bound, by = bound_s(ops, nbytes)
+    print(f"K5 {ms:.3f} ms, plain version {plain_ms:.3f} ms, float64 "
+          f"F.conv1d of the same sum {conv_ms:.3f} ms, bound "
+          f"{bound * 1e3:.4f} ms ({by}): {100 * bound * 1e3 / ms:.1f} % of its "
+          f"roofline on {card}")
+
+    with open(ROOT / "portbench" / "configs" / "whisper-frontend-48k.json") as f:
+        fc = json.load(f)["feature_config"]  # the benchmark's 48 kHz cell's
+    cfg = FeatureConfig(**fc)
+    bp = BatchPipeline(make_mesh(1, device=str(device)), cfg)
+    reset_launches()
+    got = bp.process_batch_masked(x, lengths, source_rate=K5_RATE)
+    sync(device)
+    launches = dict(LAUNCHES)
+    print("process_batch_masked at 48 kHz launches: " + json.dumps(launches))
+    require(launches == {"view_features": 0, "view_pitch": 0,
+                         "frame_features": 1, "vad": 1, "resample": 1},
+            "process_batch_masked at 48 kHz: one launch each of K5, K3 and K4")
+    at16 = bp.process_batch_masked(y, own)
+    for a, b in zip((*got[0], *got[1]), (*at16[0], *at16[1])):
+        require(torch.equal(a, b), "the batch program at 48 kHz is its call "
+                "on K5's 16 kHz rows, bit for bit")
+    path_ms = median_ms(lambda: bp.process_batch_masked(
+        x, lengths, source_rate=K5_RATE), 5)
+    path16_ms = median_ms(lambda: bp.process_batch_masked(y, own), 5)
+    print(f"process_batch_masked on the hour at {K5_RATE} Hz {path_ms:.3f} ms "
+          f"(at 16 kHz, K5's rows: {path16_ms:.3f} ms): "
+          f"{float(lengths.sum()) / K5_RATE / path_ms * 1e3:.0f} audio-s/s "
+          f"on {card}")
+
+    n = K5_CONTROL_ROWS
+    lib = k5_control_library()
+    taps = resample._taps_on(up, down, device)
+    _, n_pre_pad, n_pre_remove = resample._filter(up, down)
+    y32 = torch.empty((n, y.shape[1]), dtype=torch.int16, device=device)
+    xc = x[-n:].contiguous()
+    lc = lens[-n:].contiguous()
+    err = lib.sspv_resample_rows(
+        xc.data_ptr(), lc.data_ptr(), n, seg, y.shape[1], taps.data_ptr(),
+        taps.shape[0], up, down, n_pre_pad, n_pre_remove, y32.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream)
+    sync(device)
+    require(err == 0, "the float32 control launches")
+    flips = float((y32 != y[-n:]).sum()) / y32.numel()
+    results = {}
+    for name, rows16 in (("float64 (K5)", y[-n:]), ("float32 control", y32)):
+        block = bp.process_batch_masked(rows16, own[-n:])[0]
+        prog = {k: getattr(block, k).cpu().numpy() for k in BLOCK_FIELDS}
+        cmp = Comparison(pitch=False)
+        for r in range(n):
+            pcm = ref_resample.resample(xc[r, : lengths[-n + r]], K5_RATE, SR)
+            frames = (0 if pcm.shape[0] < cfg.frame_size else
+                      1 + (pcm.shape[0] - cfg.frame_size) // cfg.hop_size)
+            cmp.add({k: v[r] for k, v in prog.items()}, pcm,
+                    fc, None, frames)
+        results[name] = cmp.values()
+        print(f"{name} sums on {n} windows: {json.dumps(results[name])}")
+    print(f"float32 control: {flips:.3e} of its outputs differ from K5's")
+    ok64 = results["float64 (K5)"]
+    bad = results["float32 control"]
+    require(ok64["features_nmse"] <= 1e-9 and ok64["vad_mismatch"] == 0,
+            "K5's rows pass the benchmark's comparison")
+    require(bad["features_nmse"] > 1e-9 or bad["vad_mismatch"] > 0,
+            "the float32-sum control fails the benchmark's comparison")
+    return {"launches": launches["resample"], "max_abs_err": max_diff,
+            "unequal_share": 1.0 - equal, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound * 1e3, "bound_by": by,
+            "library_ms": conv_ms, "path_ms": path_ms,
+            "path16_ms": path16_ms, "control_flips": flips,
+            "control": bad, "checked": ok64}
+
+
 def time_ms(fn, reps: int = 5) -> list[float]:
     """Device milliseconds of ``reps`` warm calls of ``fn``, each between
     its own pair of CUDA events (the gap a host-bound call leaves on the
@@ -3489,6 +3664,7 @@ def main(argv=None) -> int:
                   frames_run["frames"], card)
     corpus_runs(device, main["signal"], err, card)
     l1_runs(device, main["signal"], pipe400, frames_run, card)
+    k5 = k5_runs(device, card)
 
     ms = timings(pipe, main["rows"], pipe400, frames_run, card)
     long_ms = long_timings(long_run, main["rows"], card)
@@ -3572,6 +3748,15 @@ def main(argv=None) -> int:
         "parent_ms": path["parent_ms"],
         "design_bound_ms": path["design_bound_ms"],
         "geometries": dense["geometries"]})
+    # K5 replaces no pallas_call (the JAX package resamples with lax.scan,
+    # outside its batch programs); its library call is one float64
+    # F.conv1d of the same sum, which the port never calls; max_abs_err is
+    # its largest difference from the plain version in LSB, unequal_share
+    # the share of outputs that differ
+    kernels.append({
+        "name": "resample", "route": "cuda",
+        "source": "sspv_tpu_torch/csrc/resample.cu", "replaces": None,
+        "pallas": False, **k5})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,7 @@ NVCC_FLAGS = (
 # where it launches its kernel and nowhere else, so a caller can show that
 # a run went through the kernels.
 LAUNCHES = {"view_features": 0, "view_pitch": 0, "frame_features": 0,
-            "vad": 0}
+            "vad": 0, "resample": 0}
 # Launches of K3 by route ("fft": the shared-memory FFT kernel, "dense": the
 # DFT pair on the tensor cores); they add up to LAUNCHES["frame_features"].
 # K4's window sums ("direct" or "blocked") add up to LAUNCHES["vad"].
@@ -127,6 +127,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         p, p, p, p, p, p, p, p,
     ]
     lib.sspv_streaming_vad.restype = i
+    lib.sspv_resample_rows.argtypes = [p, p, i, i, i, p, i, i, i, i, i, p, p]
+    lib.sspv_resample_rows.restype = i
     lib.sspv_error_string.argtypes = [i]
     lib.sspv_error_string.restype = ctypes.c_char_p
     return lib

@@ -27,6 +27,13 @@ signal to a grid of lengths to bound its compile count, and nothing
 compiles per shape here (the ``bucket`` keyword stays for the signature).
 ``CALLS`` counts the correlations run, as ``_build.LAUNCHES`` counts kernel
 launches.
+
+The batch programs resample int16 rows with :func:`resample_rows_int16`:
+K5 (``csrc/resample.cu``) on a CUDA tensor, :func:`plain_resample_rows_int16`
+on a CPU one. That function is the same sum with each row at its own
+length, in float64 (an int16 times a float32 tap is exact there), clipped
+to [-32768, 32767] and truncated to int16, as ``runtime/audio_source.
+_resample_to`` finishes the host path.
 """
 
 from __future__ import annotations
@@ -37,13 +44,17 @@ import math
 import numpy as np
 import torch
 
+from . import _build
 from .fp32 import full_fp32
+from ..utils.profiling import span
 
 __all__ = [
     "CALLS",
+    "plain_resample_rows_int16",
     "resample_output_len",
     "resample_poly_device",
     "resample_batch_device",
+    "resample_rows_int16",
     "resample_to_rate_device",
 ]
 
@@ -57,14 +68,9 @@ _AUTO_BLOCK_ELEMS = 1 << 24
 
 
 @functools.lru_cache(maxsize=None)
-def _polyphase_kernel(up: int, down: int) -> tuple[np.ndarray, int, int]:
-    """Banded weight matrix + alignment constants for coprime ``up/down``.
-
-    Returns ``(M, s_lo, n_pre_remove)`` where output sample
-    ``m = a*up + r`` (for ``m >= n_pre_remove``) is
-    ``sum_t x[a*down + s_lo + t] * M[t, r]`` with zero signal extension.
-    ``M`` encodes ``resample_poly``'s pre-padded filter
-    ``hp = [zeros(n_pre_pad), h]`` sampled at ``hp[r*down - s*up]``.
+def _filter(up: int, down: int) -> tuple[np.ndarray, int, int]:
+    """``(h, n_pre_pad, n_pre_remove)`` of ``resample_poly`` for coprime
+    ``up/down``: the float32 taps and the alignment.
 
     The filter comes from ``scipy.signal.firwin`` itself: exactly the taps
     ``resample_poly`` designs, so the device path cannot drift from the
@@ -79,7 +85,21 @@ def _polyphase_kernel(up: int, down: int) -> tuple[np.ndarray, int, int]:
     ).astype(np.float32)
     h = h * np.float32(up)  # resample_poly: h *= up, after the f32 cast
     n_pre_pad = down - (half_len % down)
-    n_pre_remove = (half_len + n_pre_pad) // down
+    return h, n_pre_pad, (half_len + n_pre_pad) // down
+
+
+@functools.lru_cache(maxsize=None)
+def _polyphase_kernel(up: int, down: int) -> tuple[np.ndarray, int, int]:
+    """Banded weight matrix + alignment constants for coprime ``up/down``.
+
+    Returns ``(M, s_lo, n_pre_remove)`` where output sample
+    ``m = a*up + r`` (for ``m >= n_pre_remove``) is
+    ``sum_t x[a*down + s_lo + t] * M[t, r]`` with zero signal extension.
+    ``M`` encodes ``resample_poly``'s pre-padded filter
+    ``hp = [zeros(n_pre_pad), h]`` (:func:`_filter`) sampled at
+    ``hp[r*down - s*up]``.
+    """
+    h, n_pre_pad, n_pre_remove = _filter(up, down)
     hp_len = n_pre_pad + h.shape[0]
     s_lo = -((hp_len - 1) // up)
     s_hi = ((up - 1) * down) // up
@@ -100,6 +120,12 @@ def _weights_on(up: int, down: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_polyphase_kernel(up, down)[0]).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def _taps_on(up: int, down: int, device: torch.device) -> torch.Tensor:
+    """The float32 taps of :func:`_filter` on ``device`` (K5 reads them)."""
+    return torch.from_numpy(_filter(up, down)[0]).to(device)
+
+
 def resample_output_len(n_in: int, up: int, down: int) -> int:
     """``resample_poly`` output length: ``ceil(n_in * up / down)`` (after
     gcd reduction)."""
@@ -118,9 +144,10 @@ def _reduce_ratio(up: int, down: int) -> tuple[int, int]:
 
 def _correlate(x: torch.Tensor, up: int, down: int,
                row_block: int = 0) -> torch.Tensor:
-    """Resample the rows of a float32 ``(B, L)`` batch (``L > 0``,
-    ``up != down``, coprime) on its device: ``(B, ceil(L*up/down))``."""
-    weights = _weights_on(up, down, x.device)
+    """Resample the rows of a float32 (or float64) ``(B, L)`` batch
+    (``L > 0``, ``up != down``, coprime) on its device, in its dtype:
+    ``(B, ceil(L*up/down))``."""
+    weights = _weights_on(up, down, x.device).to(x.dtype)
     _, s_lo, n_pre_remove = _polyphase_kernel(up, down)
     width = weights.shape[0]
     batch, n_in = x.shape
@@ -214,3 +241,78 @@ def resample_to_rate_device(arr, src_sr: int, dst_sr: int, *,
     up, down = _reduce_ratio(int(dst_sr), int(src_sr))
     y = resample_poly_device(arr, up, down, device=device)
     return y.clamp_(-32768.0, 32767.0).to(torch.int16).cpu().numpy()
+
+
+def _row_lengths(lengths, b: int, n_in: int, device) -> torch.Tensor:
+    """Each row's valid samples as a ``(b,)`` int32 tensor on ``device``:
+    a tensor there stays as it is (the kernel clamps it to [0, n_in]); a host
+    sequence is checked and uploaded."""
+    if isinstance(lengths, torch.Tensor) and lengths.device == device:
+        if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+            raise ValueError(f"lengths must be int32 ({b},) on {device}, got "
+                             f"{lengths.dtype} {tuple(lengths.shape)}")
+        return lengths.contiguous()
+    lens = np.asarray(lengths.cpu() if isinstance(lengths, torch.Tensor)
+                      else lengths, np.int64)
+    if lens.shape != (b,) or (lens < 0).any() or (lens > n_in).any():
+        raise ValueError(f"lengths must be {b} counts in [0, {n_in}], got "
+                         f"{lens.tolist()}")
+    return torch.from_numpy(lens.astype(np.int32)).to(device)
+
+
+def plain_resample_rows_int16(x: torch.Tensor, lengths, up: int,
+                              down: int) -> torch.Tensor:
+    """K5's plain version: the rows of an int16 ``(B, L)`` tensor, row ``b``
+    zero from ``lengths[b]`` on, resampled by the coprime ``up/down`` on
+    their device (:func:`_correlate` in float64), clipped, truncated to
+    int16 and zero past each row's own output length
+    ``resample_output_len(lengths[b], up, down)``."""
+    b, n_in = x.shape
+    n_out = resample_output_len(n_in, up, down)
+    lens = _row_lengths(lengths, b, n_in, x.device).to(torch.int64)
+    if n_in == 0:
+        return x.new_zeros((b, 0))
+    pos = torch.arange(n_in, device=x.device)
+    xf = torch.where(pos < lens[:, None], x, 0).to(torch.float64)
+    y = _correlate(xf, up, down).clamp_(-32768.0, 32767.0).to(torch.int16)
+    own = -(-lens * up // down)
+    return y.masked_fill_(torch.arange(n_out, device=x.device) >= own[:, None], 0)
+
+
+def resample_rows_int16(x: torch.Tensor, lengths, up: int,
+                        down: int) -> torch.Tensor:
+    """Resample int16 ``(B, L)`` rows, row ``b`` valid below ``lengths[b]``
+    (a host sequence, or an int32 ``(B,)`` tensor on the rows' device), by
+    ``up/down``: int16 ``(B, resample_output_len(L, up, down))``, each row
+    zero past its own output length. K5 on a CUDA tensor (one launch), the
+    plain version on a CPU one; ``up == down`` raises (nothing to do)."""
+    with span("sspv.k5.resample"):
+        up, down = _reduce_ratio(up, down)
+        if up == down:
+            raise ValueError("up == down: the rows are at the rate asked for")
+        if x.dtype != torch.int16 or x.dim() != 2:
+            raise ValueError(f"x must be (B, L) int16, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if x.device.type == "cpu":
+            return plain_resample_rows_int16(x, lengths, up, down)
+        if x.device.type != "cuda":
+            raise ValueError(f"no resample kernel for device {x.device}")
+        dev = x.device
+        b, n_in = x.shape
+        lens = _row_lengths(lengths, b, n_in, dev)
+        n_out = resample_output_len(n_in, up, down)
+        y = torch.empty((b, n_out), dtype=torch.int16, device=dev)
+        if b == 0 or n_in == 0:
+            return y
+        x = x.contiguous()
+        taps = _taps_on(up, down, dev)
+        _, n_pre_pad, n_pre_remove = _filter(up, down)
+        lib = _build.library()
+        with torch.cuda.device(dev):
+            err = lib.sspv_resample_rows(
+                x.data_ptr(), lens.data_ptr(), b, n_in, n_out, taps.data_ptr(),
+                taps.shape[0], up, down, n_pre_pad, n_pre_remove, y.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "resample")
+        _build.count("resample")
+        return y

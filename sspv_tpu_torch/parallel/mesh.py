@@ -15,6 +15,10 @@ device with ``.to``):
   rows as the JAX package ``vmap``s the VAD). The pitch program runs one K2
   launch over the rows views of all the device's rows. The corpus's batch
   program (``_exact_batch``) runs only each row's own frames through them.
+- ``process_batch_masked(_pitch)`` and ``_exact_batch`` take int16 rows at
+  another ``source_rate``: each device then resamples its rows on the card
+  (K5, ``ops/resample.resample_rows_int16``, each row at its own length)
+  before it frames them, and the rows' lengths become the resampled ones.
 - ``process_long`` and ``process_long_pitch`` split one signal's frames over
   every device of the flattened mesh. On the shard route
   (``_long_kernel_feats`` / ``_long_kernel_pitch``) each device runs K1 / K2
@@ -36,6 +40,8 @@ import torch
 from ..ops import vad as vad_ops
 from ..ops.pipeline import FeatureBlock, FeatureConfig, FeaturePipeline
 from ..ops.pitch import _lag_band, pitch_from_frames, pitch_track_signal_gated
+from ..ops.resample import (_reduce_ratio, resample_output_len,
+                            resample_rows_int16)
 from ..ops.view_kernels import fused_view_pitch
 from ..utils.profiling import span
 
@@ -174,19 +180,28 @@ class BatchPipeline:
             return block, states
 
     def process_batch_masked(self, signals, lengths,
-                             states: vad_ops.VadState | None = None):
+                             states: vad_ops.VadState | None = None, *,
+                             source_rate: int | None = None):
         """A ``(B, L)`` zero-padded batch of unequal-length signals:
         ``lengths[i]`` is row i's true sample count. Frames past a row's
         true length are masked out of its VAD state (a row shorter than a
-        frame keeps its state)."""
+        frame keeps its state).
+
+        ``source_rate``: the rows' rate, where it is not the
+        configuration's. The int16 rows are then resampled on the card
+        first, each at its own length (K5), and the result is this call's
+        on the resampled rows, ``(B, resample_output_len(L, up, down))``
+        with lengths ``resample_output_len(lengths[i], up, down)``."""
         with span("sspv.mesh.process_batch_masked"):
-            block, states, _ = self._rows(signals, lengths, states, None)
+            block, states, _ = self._rows(signals, lengths, states, None,
+                                          ratio=self._ratio(source_rate))
             return block, states
 
     def process_batch_masked_pitch(self, signals, lengths,
                                    states: vad_ops.VadState | None = None,
                                    fmin: float = 50.0, fmax: float = 400.0,
-                                   min_confidence: float = 0.3):
+                                   min_confidence: float = 0.3, *,
+                                   source_rate: int | None = None):
         """:meth:`process_batch_masked` plus the VAD-gated pitch track:
         ``(block, states, f0, conf)`` with ``f0``/``conf`` of shape
         ``(B, frames)``. The gate is the shared one
@@ -194,11 +209,30 @@ class BatchPipeline:
         ``(vad > 0) & (conf >= min_confidence)``) on the VAD masked to each
         row's true frames, as the two-call construction gates it."""
         with span("sspv.mesh.process_batch_masked_pitch"):
+            ratio = self._ratio(source_rate)
             block, states, (f0, conf) = self._rows(
-                signals, lengths, states, (fmin, fmax)
+                signals, lengths, states, (fmin, fmax), ratio=ratio
             )
             return (block, states, *self._gated_pitch(
-                block, lengths, f0, conf, min_confidence))
+                block, self._out_lengths(lengths, ratio), f0, conf,
+                min_confidence))
+
+    def _ratio(self, source_rate) -> tuple[int, int] | None:
+        """``(up, down)`` from ``source_rate`` to the configuration's rate,
+        or None where there is nothing to resample."""
+        sr = self.pipe.cfg.sample_rate
+        if source_rate is None or int(source_rate) == sr:
+            return None
+        return _reduce_ratio(sr, int(source_rate))
+
+    @staticmethod
+    def _out_lengths(lengths, ratio):
+        """``lengths`` at the configuration's rate: each row's
+        ``resample_output_len`` (``lengths`` itself without a ratio)."""
+        if ratio is None or lengths is None:
+            return lengths
+        up, down = ratio
+        return -(-np.asarray(lengths, np.int64) * up // down)
 
     def _gated_pitch(self, block, lengths, f0, conf, min_confidence: float):
         """The batch programs' pitch gate: ``(vad > 0) & (conf >=
@@ -213,7 +247,8 @@ class BatchPipeline:
             return torch.where(gate, f0, torch.zeros_like(f0)), conf
 
     def _exact_batch(self, signals, lengths, route_frames: int,
-                     band: tuple | None = None, min_confidence: float = 0.3):
+                     band: tuple | None = None, min_confidence: float = 0.3, *,
+                     source_rate: int | None = None):
         """The corpus's batch program: :meth:`process_batch_masked` (and
         with ``band = (fmin, fmax)`` :meth:`process_batch_masked_pitch`) of
         a ``(B, L)`` zero-padded batch from initial states, where only each
@@ -221,14 +256,19 @@ class BatchPipeline:
         row's own rows view, and K4 on each row's length, in the VAD order
         of ``route_frames`` frames (the bucket the JAX package's batch has).
         Returns ``(block, f0, conf)`` (``f0``/``conf`` None without a band);
-        past a row's true frames the features, f0 and conf are 0."""
+        past a row's true frames the features, f0 and conf are 0. With
+        ``source_rate`` the rows are resampled first, as in
+        :meth:`process_batch_masked`; ``route_frames`` counts frames at the
+        configuration's rate."""
         with span("sspv.mesh.exact_batch"):
+            ratio = self._ratio(source_rate)
             block, _, pitch = self._rows(signals, lengths, None, band,
-                                         route_frames, exact=True)
+                                         route_frames, exact=True, ratio=ratio)
             if band is None:
                 return block, None, None
-            return (block,
-                    *self._gated_pitch(block, lengths, *pitch, min_confidence))
+            return (block, *self._gated_pitch(
+                block, self._out_lengths(lengths, ratio), *pitch,
+                min_confidence))
 
     def _true_n(self, lengths) -> np.ndarray:
         c = self.pipe.cfg
@@ -241,20 +281,35 @@ class BatchPipeline:
         return torch.arange(f, device=device)[None, :] < true_n[:, None]
 
     def _rows(self, signals, lengths, states, band, route_frames=None,
-              exact: bool = False):
+              exact: bool = False, ratio: tuple[int, int] | None = None):
         """The batch programs' body: rows over "data", one K3 launch per
         device over its rows' frames, one VAD call per device over its rows
         (each row with its own state and length: the ``vmap``ped
         ``_masked_row`` of the JAX package; the window sums in the order of
         ``route_frames`` frames, default the batch's), and with ``band =
         (fmin, fmax)`` the ungated pitch of every row. ``exact``: only each
-        row's true frames run through K3 and K2 (``_exact_batch``). Returns
+        row's true frames run through K3 and K2 (``_exact_batch``).
+        ``ratio``: ``(up, down)`` (``_ratio``), the int16 rows resampled by it
+        on each device first, ``lengths`` their lengths before it. Returns
         ``(block, states, (f0, conf) or None)`` on the mesh's first
         device."""
         sig = _as_transfer_dtype(signals)
         if sig.ndim != 2:
             raise ValueError(f"signals must be (B, L), got {tuple(sig.shape)}")
         b, length = int(sig.shape[0]), int(sig.shape[1])
+        src_lengths = None
+        if ratio is not None:
+            if str(sig.dtype) not in ("int16", "torch.int16"):
+                raise ValueError(f"rows at a source rate must be int16, got "
+                                 f"{sig.dtype}")
+            src_lengths = np.full(b, length, np.int64) if lengths is None \
+                else np.asarray(lengths, np.int64)
+            if src_lengths.shape != (b,) or (src_lengths < 0).any() \
+                    or (src_lengths > length).any():
+                raise ValueError(f"lengths must be {b} counts in [0, "
+                                 f"{length}], got {src_lengths.tolist()}")
+            lengths = self._out_lengths(src_lengths, ratio)
+            length = resample_output_len(length, *ratio)
         dp = self.mesh.devices.shape[0]
         if b % dp:
             raise ValueError(f"batch {b} is not a multiple of the mesh's "
@@ -270,8 +325,20 @@ class BatchPipeline:
             pipe = self._pipes[self.mesh.devices[i, 0]]
             rows = slice(i * per, (i + 1) * per)
             own = None  # with exact: each row's frame count
+            n = None  # each row's frame count on the device, K4's lengths
             with span("sspv.mesh.rows.frame"):
-                x = pipe._upload(sig[rows]).to(torch.float32)
+                x = pipe._upload(sig[rows])
+                if ratio is not None:
+                    with span("sspv.mesh.resample"):
+                        # K4's frame counts and K5's source lengths in one
+                        # pageable upload, made while the stream is empty: it
+                        # syncs the stream, and after K3 it would wait for K3
+                        counts = torch.from_numpy(np.concatenate(
+                            [true_n[rows], src_lengths[rows]]).astype(
+                                np.int32)).to(pipe.device)
+                        n = counts[:per]
+                        x = resample_rows_int16(x, counts[per:], *ratio)
+                x = x.to(torch.float32)
                 if exact and f:
                     own = [int(n) for n in true_n[rows]]
                     windows = x.unfold(1, c.frame_size, c.hop_size)
@@ -285,8 +352,7 @@ class BatchPipeline:
             feats = pipe._features(frames)  # one K3 launch for all rows
             feats = {k: self._per_row(v, per, f, own)
                      for k, v in feats.items()}
-            n = None
-            if true_n is not None:
+            if true_n is not None and n is None:
                 n = torch.from_numpy(true_n[rows].astype(np.int32)).to(
                     pipe.device)
             # one VAD call over all rows (K4 on CUDA), each with its state

@@ -34,6 +34,9 @@ struct dim3 {
 struct float4 {
   float x, y, z, w;
 };
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
@@ -81,6 +84,12 @@ inline cudaError_t cudaGetDevice(int* device) {
 }
 inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
   *value = 1;  // one multiprocessor: the grid-stride loops take several turns
+  return cudaSuccess;
+}
+template <class T>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int,
+                                                                 size_t) {
+  *n = 1;  // with one multiprocessor: one block takes every tile in turn
   return cudaSuccess;
 }
 inline const char* cudaGetErrorString(cudaError_t) { return "CPU stand-in"; }

@@ -708,6 +708,113 @@ def test_mesh_programs_on_cuda(d):
     assert torch.equal(got[1].count.cpu(), want[1].count)
 
 
+# -- K5, the rows resampler of the batch programs --------------------------
+#
+# K5 against its plain version (float64 sums both: they differ only in the
+# order of each output's sum, so an int16 output may differ by one LSB where
+# the sum lies within rounding of a truncation boundary): equal on at least
+# 1 - 1e-6 of the outputs, none further than one LSB, zero past each row's
+# own output length.
+
+K5_RATIOS = {"48k_to_16k": (48000, 16000), "44k1_to_16k": (44100, 16000),
+             "8k_to_16k": (8000, 16000)}
+
+
+def _k5_rows(src: int, seed: int):
+    """Eight int16 rows of 2 s at ``src``: speech-like tones and noise, with
+    unequal lengths (whole, odd, not a multiple of down, shorter than the
+    filter, empty)."""
+    rng = np.random.default_rng(seed)
+    n = 2 * src
+    t = np.arange(n) / src
+    x = rng.normal(0, 40, (8, n)) + 6000 * np.sin(
+        2 * np.pi * rng.uniform(80, 300, (8, 1)) * t * np.arange(1, 9)[:, None]
+        ) / np.arange(1, 9)[:, None]
+    x = np.clip(x, -32768, 32767).astype(np.int16)
+    lengths = np.array([n, n - 1, n - 7, n // 3 + 1, 1001, 37, 1, 0])
+    x[np.arange(n)[None, :] >= lengths[:, None]] = 0
+    return x, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", list(K5_RATIOS))
+def test_resample_kernel_matches_plain_version(ratio):
+    from sspv_tpu_torch.ops import resample as tres
+
+    dev = _device("cuda")
+    src, dst = K5_RATIOS[ratio]
+    up, down = tres._reduce_ratio(dst, src)
+    for seed in range(3):
+        x, lengths = _k5_rows(src, seed)
+        before = _build.LAUNCHES["resample"]
+        got = tres.resample_rows_int16(torch.from_numpy(x).to(dev), lengths,
+                                       up, down)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["resample"] == before + 1
+        want = tres.plain_resample_rows_int16(torch.from_numpy(x), lengths,
+                                              up, down)
+        diff = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
+        assert got.shape == want.shape
+        assert int(diff.max()) <= 1
+        assert int((diff > 0).sum()) <= 1e-6 * diff.numel()
+        own = -(-lengths * up // down)
+        past = torch.arange(got.shape[1])[None, :] >= torch.from_numpy(own)[:, None]
+        assert not got.cpu()[past].any()
+
+
+@pytest.mark.cuda
+def test_resample_kernel_refuses_what_it_cannot_take():
+    from sspv_tpu_torch.ops import resample as tres
+
+    dev = _device("cuda")
+    x = torch.zeros((2, 300), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):
+        tres.resample_rows_int16(x.float(), [300, 300], 1, 3)
+    with pytest.raises(ValueError):
+        tres.resample_rows_int16(x, [300, 301], 1, 3)
+    with pytest.raises(ValueError):
+        tres.resample_rows_int16(x, torch.zeros(3, dtype=torch.int32,
+                                                device=dev), 1, 3)
+    with pytest.raises(ValueError):
+        tres.resample_rows_int16(x, [300, 300], 3, 3)
+
+
+@pytest.mark.cuda
+def test_batch_program_resamples_on_the_card():
+    """``process_batch_masked(_pitch)`` and ``_exact_batch`` at 48 kHz on the
+    card: one K5 launch a call, and bit for bit the same call on the rows K5
+    gives at 16 kHz; at 16 kHz (or no source rate) no K5 launch."""
+    from sspv_tpu_torch.ops import resample as tres
+    from sspv_tpu_torch.parallel import BatchPipeline, make_mesh
+
+    dev = _device("cuda")
+    cfg = FeatureConfig(frame_size=400, hop_size=160, n_fft=400,
+                        entropy_n_fft=400, num_filters=80, window_type="hann")
+    bp = BatchPipeline(make_mesh(1), cfg)
+    x, lengths = _k5_rows(48000, 7)
+    rows = tres.resample_rows_int16(torch.from_numpy(x).to(dev), lengths, 1, 3)
+    out_lengths = -(-lengths // 3)
+    calls = {
+        "masked": (lambda s, n, **kw: bp.process_batch_masked(s, n, **kw)),
+        "pitch": (lambda s, n, **kw: bp.process_batch_masked_pitch(s, n, **kw)),
+        "exact": (lambda s, n, **kw: bp._exact_batch(s, n, 512, (50.0, 400.0),
+                                                     **kw)),
+    }
+    for name, call in calls.items():
+        before = _build.LAUNCHES["resample"]
+        got = call(x, lengths, source_rate=48000)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["resample"] == before + 1, name
+        want = call(rows, out_lengths)
+        want_none = call(rows, out_lengths, source_rate=16000)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["resample"] == before + 1, name
+        for g, w, w2 in zip(got, want, want_none):
+            for a, b, c in zip(*(t if isinstance(t, tuple) else (t,)
+                                 for t in (g, w, w2))):
+                assert torch.equal(a, b) and torch.equal(a, c), name
+
+
 # -- the L1 ops, the facade, the frontend modules and the resampler ---------
 #
 # Each on the card against itself on the CPU. Gates: framing, pre-emphasis,

@@ -739,3 +739,67 @@ def test_vad_kernel_on_cpu_decides_ties_at_exact_length(lib, tie, impl):
     want_v, want_a = oracle.EngineVadOracle().run_all(e, z, h)
     np.testing.assert_array_equal(got[0].numpy(), want_v)
     np.testing.assert_array_equal(got[1].numpy(), want_a)
+
+
+# -- K5, the rows resampler -------------------------------------------------
+
+# (src, dst, samples a row): 48 -> 16 kHz (a ring of 7 sums a thread), 44.1
+# -> 16 kHz (one sum a thread: no sample serves two outputs of one phase),
+# 8 -> 16 kHz (two phases), 11,025 -> 16 kHz (up 640: more items than
+# threads); rows of a multiple of 8 samples take the 16-byte loads and
+# stores, the others the one-sample path; 48 kHz at 12,800 samples spans
+# three tiles.
+K5_CASES = [(48000, 16000, 12800), (48000, 16000, 4801),
+            (44100, 16000, 4000), (8000, 16000, 2001),
+            (11025, 16000, 1600)]
+
+
+def _k5(lib, x: torch.Tensor, lengths: torch.Tensor, up: int, down: int):
+    """``resample.resample_rows_int16``'s launch against the CPU library."""
+    from sspv_tpu_torch.ops import resample
+
+    b, n_in = x.shape
+    n_out = resample.resample_output_len(n_in, up, down)
+    taps = torch.from_numpy(resample._filter(up, down)[0])
+    _, n_pre_pad, n_pre_remove = resample._filter(up, down)
+    y = torch.full((b, n_out), 7, dtype=torch.int16)
+    err = lib.sspv_resample_rows(x.data_ptr(), lengths.data_ptr(), b, n_in,
+                                 n_out, taps.data_ptr(), taps.shape[0], up,
+                                 down, n_pre_pad, n_pre_remove, y.data_ptr(),
+                                 None)
+    assert err == 0
+    return y
+
+
+@pytest.mark.parametrize("src,dst,n", K5_CASES)
+def test_resample_kernel_on_cpu_matches_plain(lib, src, dst, n):
+    """Every output EQUAL to the plain version's (float64 sums both; the
+    host's order of each sum is the kernel's), 0 past each row's own
+    length whatever lies past its samples."""
+    from sspv_tpu_torch.ops import resample
+
+    up, down = resample._reduce_ratio(dst, src)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(0, 9000, (4, n)).clip(-32768, 32767)
+                         .astype(np.int16))
+    lengths = torch.tensor([n, n - 5, 31, 0], dtype=torch.int32)
+    got = _k5(lib, x, lengths, up, down)
+    want = resample.plain_resample_rows_int16(x, lengths, up, down)
+    assert torch.equal(got, want)
+    zeroed = x.clone()
+    zeroed[torch.arange(n)[None, :] >= lengths[:, None].long()] = 0
+    assert torch.equal(_k5(lib, zeroed, lengths, up, down), got)
+
+
+def test_resample_entry_point_refuses_what_it_does_not_take(lib):
+    x = torch.zeros((2, 64), dtype=torch.int16)
+    lengths = torch.tensor([64, 64], dtype=torch.int32)
+    y = torch.zeros((2, 22), dtype=torch.int16)
+    taps = torch.zeros(61)
+    ok = (x.data_ptr(), lengths.data_ptr(), 2, 64, 22, taps.data_ptr(), 61,
+          1, 3, 2, 10, y.data_ptr(), None)
+    assert lib.sspv_resample_rows(*ok) == 0
+    for at, bad in ((2, 0), (4, 23), (6, 0), (7, 0), (8, 0), (9, -1)):
+        args = list(ok)
+        args[at] = bad
+        assert lib.sspv_resample_rows(*args) != 0, (at, bad)

@@ -271,3 +271,106 @@ def test_validation_errors():
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises((AssertionError, RuntimeError)):
             tres.resample_poly_device(np.zeros(10, np.float32), 2, 1)
+
+
+# -- rows at their own lengths, float64 sums (K5's plain version) ----------
+
+ROW_RATIOS = [(48000, 16000), (44100, 16000), (8000, 16000)]
+
+
+def _rows_at(src: int, seed: int, n: int):
+    """Five seeded int16 rows of ``n`` samples, zero past unequal lengths:
+    whole, one that ``down`` does not divide, a third, one shorter than the
+    filter and an empty one."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 9000, (5, n)).clip(-32768, 32767).astype(np.int16)
+    lengths = np.array([n, n - 1 if n % 3 == 1 else n - 2, n // 3 + 1, 17, 0])
+    x[np.arange(n)[None, :] >= lengths[:, None]] = 0
+    return x, lengths
+
+
+def _upfirdn_rows(x, lengths, src, dst):
+    """Each row's own samples through a float64 ``upfirdn`` of the float32
+    taps ``resample_poly`` designs, cut to its output length, clipped and
+    truncated."""
+    from scipy.signal import upfirdn
+
+    up, down = _ratio(src, dst)
+    h, n_pre_pad, n_pre_remove = tres._filter(up, down)
+    hp = np.concatenate([np.zeros(n_pre_pad), h.astype(np.float64)])
+    out = np.zeros((len(x), tres.resample_output_len(x.shape[1], up, down)),
+                   np.int16)
+    for b, n in enumerate(lengths):
+        own = tres.resample_output_len(int(n), up, down)
+        if n:
+            y = upfirdn(hp, x[b, :n].astype(np.float64), up, down)
+            out[b, :own] = np.clip(y[n_pre_remove : n_pre_remove + own],
+                                   -32768, 32767).astype(np.int16)
+    return out
+
+
+@pytest.mark.parametrize("src,dst", ROW_RATIOS)
+@pytest.mark.parametrize("n", [480, 4801])
+def test_rows_plain_version_is_upfirdn_in_float64(src, dst, n):
+    up, down = _ratio(src, dst)
+    for seed in range(2):
+        x, lengths = _rows_at(src, seed + n, n)
+        got = tres.resample_rows_int16(torch.from_numpy(x), lengths, up, down)
+        assert got.dtype == torch.int16
+        np.testing.assert_array_equal(got.numpy(),
+                                      _upfirdn_rows(x, lengths, src, dst))
+        # the same through the plain version with the lengths on the device
+        again = tres.plain_resample_rows_int16(
+            torch.from_numpy(x), torch.from_numpy(lengths.astype(np.int32)),
+            up, down)
+        assert torch.equal(got, again)
+
+
+def test_rows_ignore_samples_past_their_lengths():
+    """What lies past a row's length (here not zero) changes nothing."""
+    x, lengths = _rows_at(48000, 4, 3000)
+    noisy = x.copy()
+    noisy[np.arange(3000)[None, :] >= lengths[:, None]] = 1234
+    a = tres.resample_rows_int16(torch.from_numpy(x), lengths, 1, 3)
+    b = tres.resample_rows_int16(torch.from_numpy(noisy), lengths, 1, 3)
+    assert torch.equal(a, b)
+    # the unreduced ratio is the same call
+    assert torch.equal(a, tres.resample_rows_int16(torch.from_numpy(x),
+                                                   lengths, 16000, 48000))
+
+
+def test_rows_validation():
+    x = torch.zeros((2, 300), dtype=torch.int16)
+    for args in ((x.float(), [300, 300], 1, 3), (x[0], [300], 1, 3),
+                 (x, [300, 301], 1, 3), (x, [300, -1], 1, 3),
+                 (x, [300], 1, 3), (x, [300, 300], 3, 3),
+                 (x, [300, 300], 0, 3)):
+        with pytest.raises(ValueError):
+            tres.resample_rows_int16(*args)
+    with pytest.raises(ValueError):
+        tres.resample_rows_int16(x.to("meta"), [300, 300], 1, 3)
+    assert tuple(tres.resample_rows_int16(x[:, :0], [0, 0], 1, 3).shape) == (2, 0)
+
+
+@pytest.mark.parametrize("src,dst", ROW_RATIOS + [(22050, 16000)])
+def test_benchmark_reference_taps_are_the_ports(src, dst):
+    """``portbench/reference/resample.py`` designs the same float32 taps
+    (``np.array_equal``) as the port's filter, whose polyphase matrix they
+    fill, and resamples a row to the same int16 samples."""
+    from portbench.reference import resample as ref
+
+    up, down = ref.ratio(src, dst)
+    assert (up, down) == _ratio(src, dst)
+    h, n_pre_pad, _ = tres._filter(up, down)
+    assert np.array_equal(ref.taps(up, down), h)
+    weights, s_lo, _ = tres._polyphase_kernel(up, down)
+    t = np.arange(weights.shape[0])[:, None]
+    idx = np.arange(up)[None, :] * down - (s_lo + t) * up - n_pre_pad
+    live = (idx >= 0) & (idx < len(h))
+    assert np.array_equal(weights[live], ref.taps(up, down)[idx[live]])
+    assert not weights[~live].any()
+    x, lengths = _rows_at(src, 8, 2000)
+    got = tres.resample_rows_int16(torch.from_numpy(x), lengths, up, down)
+    for b, n in enumerate(lengths):
+        want = ref.resample(torch.from_numpy(x[b, :n]), src, dst)
+        assert torch.equal(got[b, : want.shape[0]], want)

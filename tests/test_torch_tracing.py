@@ -297,6 +297,37 @@ def test_process_batch_masked_records_its_stages():
         "sspv.k4.vad": 1, "sspv.mesh.rows.collect": 1}
 
 
+@pytest.mark.parametrize("rate", [48000, None, 16000])
+def test_process_batch_masked_records_the_resample(rate):
+    """At a source rate the call records ``sspv.mesh.resample`` and, inside
+    it, the wrapper's ``sspv.k5.resample``, once a device, both under
+    ``sspv.mesh.process_batch_masked``; at none or the configuration's
+    own, neither."""
+    cfg = FeatureConfig(frame_size=400, hop_size=160, n_fft=400,
+                        entropy_n_fft=400, num_filters=80,
+                        window_type="hann")
+    bp = BatchPipeline(make_mesh(1, device="cpu"), cfg)
+    src = rate or 16000
+    sig = np.stack([speech(0.5 * src / SR, seed) for seed in range(2)])
+    with profile(activities=[ProfilerActivity.CPU]):
+        bp.process_batch_masked(sig, [sig.shape[1], sig.shape[1] // 2],
+                                source_rate=rate)
+    inside, _ = _names_inside("sspv.mesh.process_batch_masked")
+    want = {"sspv.mesh.rows.frame": 1, "sspv.pipeline.upload": 1,
+            "sspv.k3.frame_features": 1, "sspv.mesh.rows.per_row": 4,
+            "sspv.k4.vad": 1, "sspv.mesh.rows.collect": 1}
+    if rate == 48000:
+        want.update({"sspv.mesh.resample": 1, "sspv.k5.resample": 1})
+    assert inside == want
+    records, _ = spans()
+    by_index = {r.index: r for r in records}
+    for r in records:
+        if r.name == "sspv.k5.resample":
+            assert by_index[r.parent].name == "sspv.mesh.resample"
+        if r.name == "sspv.mesh.resample":
+            assert by_index[r.parent].name == "sspv.mesh.rows.frame"
+
+
 def test_the_engine_records_take_dispatch_and_publish(tmp_path):
     """A file source read to its end under a profiler: each block's
     dispatch and publish share one request id, the dispatch's own."""
