@@ -865,7 +865,7 @@ def engine_trace(device, sig16: np.ndarray, samples_dispatch: int,
                  frames_per_dispatch: int, card: str) -> dict:
     """``ENGINE_TRACE_DISPATCHES`` engine dispatches of
     ``frames_per_dispatch`` frames each, one in flight as the engine's loop
-    keeps them (``_dispatch*`` then ``_materialize`` of the one before),
+    keeps them (``_dispatch`` then ``_materialize`` of the one before),
     under ``torch.profiler`` after a warm one: kernels per dispatch, the
     device's busy time and idle share over the window
     (``tools.roofline.read_trace``), recorded again up to 3 times while the
@@ -890,12 +890,11 @@ def engine_trace(device, sig16: np.ndarray, samples_dispatch: int,
         block = sig16[lo * hop : (lo + frames_per_dispatch - 1) * hop + frame]
         blocks.append(block if samples_dispatch else
                       rt.pipeline.stream_frames(block))
-    dispatch = rt._dispatch_samples if samples_dispatch else rt._dispatch
 
     def run(part):
         inflight = None
         for block in part:
-            nxt = dispatch(block)
+            nxt = rt._dispatch(block, frames_per_dispatch)
             if inflight is not None:
                 rt._materialize(inflight)
             inflight = nxt
@@ -945,14 +944,13 @@ def replayed_frames(rt) -> dict:
     wrappers see none of them). Returns a dict whose ``"frames"`` holds
     the count."""
     seen = {"frames": 0}
-    if rt._graphs is not None:
-        replay = rt._graphs.replay
+    replay = rt._replay
 
-        def counted(samples, n):
-            seen["frames"] += n
-            return replay(samples, n)
+    def counted(n, slot):
+        seen["frames"] += n
+        return replay(n, slot)
 
-        rt._graphs.replay = counted
+    rt._replay = counted
     return seen
 
 

@@ -379,6 +379,8 @@ class FeaturePipeline:
         return sig if sig.dtype == np.int16 else sig.astype(np.float32, copy=False)
 
     def _upload(self, a) -> torch.Tensor:
+        """``a`` on the pipeline's device. The host branch serves the
+        offline programs only: the engine hands over device tensors."""
         with span("sspv.pipeline.upload"):
             if isinstance(a, torch.Tensor):
                 return a.to(self.device)

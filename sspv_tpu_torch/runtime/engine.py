@@ -25,22 +25,31 @@ Internally the design is block-parallel instead of a per-frame Python loop:
   bytes than an f32 frame matrix); with ``TPU_STREAM_SAMPLES_DISPATCH=0``,
   and for every geometry the view kernels do not take, the host frames the
   block and the frames path (kernel K3) runs;
-- dispatch is double-buffered: each dispatch enqueues its block's work on
-  the engine's own CUDA stream, then a ``non_blocking`` copy of the packed
-  block into pinned host memory, and records a ``torch.cuda.Event``; the
+- dispatch is double-buffered through two slots (:class:`_Slot`), used in
+  turn, each sized by the top bucket in the engine's dispatch mode: host
+  staging (pinned on the card), a device input buffer, a host readback
+  block and, on the card, an event. A dispatch stages its payload, then
+  enqueues on the engine's own CUDA stream one body
+  (:meth:`AudioRuntime._run`): the ``non_blocking`` copy of the staging
+  into the device input, the mode's packed program on that device tensor,
+  the write of the new state, and the ``non_blocking`` copy of the packed
+  block into the readback block; then it records the slot's event. The
   block is read only when that event is done. Block k+1 is enqueued before
   block k is read back, so host framing, transfer and device compute overlap
   with readback — this replaces the reference's producer/consumer deque
   handoff (engine.py:90-103) as the concurrency mechanism;
+- the engine hands the pipeline only tensors already on its device: no
+  host array reaches ``FeaturePipeline._upload`` from an engine thread or a
+  capture (that function's host branch serves the offline programs);
 - on the card, a samples block of up to ``GRAPH_MAX_FRAMES`` frames (the
   live cadence: a few frames a capture chunk) replays a CUDA graph of that
-  whole dispatch (:class:`_BlockGraphs`): one copy into pinned memory and
-  one launch in place of a dozen device operations reached through dozens
-  of eager PyTorch calls. The kernels, their arguments and their order are
-  the eager dispatch's, so a replayed block is bit-identical to it. Larger
-  blocks, the frames dispatch, pitch and the CPU run eagerly; every route
-  reads and writes one static packed-state buffer, so the VAD state passes
-  between them exactly;
+  same body, one a block size and slot (:meth:`AudioRuntime._capture`):
+  one copy into pinned staging and one launch in place of a dozen device
+  operations reached through dozens of eager PyTorch calls. A replayed
+  block is the eager block by construction. Larger blocks, the frames
+  dispatch, pitch and the CPU run the body eagerly; every route reads and
+  writes one static packed-state buffer, so the VAD state passes between
+  them exactly;
 - per-frame results land in the same ``processed_data`` deque-of-dicts shape
   (keys ``energy, zcr, vad, spec_entropy, vad_adaptive, mfcc``,
   engine.py:302-311) so downstream consumers are unchanged.
@@ -53,6 +62,7 @@ float64, vads int32, spec_entropy/vads_adaptive float32, int32 scalars).
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import logging
 import threading
@@ -86,6 +96,9 @@ IDLE_WAIT_S = 0.1
 # default) replay CUDA graphs on the card: one graph a size, so the bound
 # also bounds the graphs an engine holds.
 GRAPH_MAX_FRAMES = 32
+
+# An engine's dispatch slots (_Slot): one block in flight, one being staged.
+SLOTS = 2
 
 
 def _parse_flag(value, default: bool, name: str) -> bool:
@@ -175,88 +188,24 @@ def _collector_paused():
                 gc.enable()
 
 
-class _BlockGraphs:
-    """One engine's samples dispatch of small blocks as CUDA graphs.
+class _Slot:
+    """One of an engine's two dispatch slots, each buffer sized by the
+    engine's top bucket in its dispatch mode: host staging (pinned on the
+    card) of a ``payload`` (the int16 samples of that many frames, or their
+    float32 frame matrix), the device input the body copies it into, the
+    host ``readback`` block the body copies the packed block into, and on
+    the card the event recorded after a block's work. The engine keeps at
+    most one block in flight and uses the slots in turn, so a slot's block
+    is published before the slot is staged again."""
 
-    The graph of ``n``-frame blocks holds, in order: the upload of the
-    first samples of a pinned staging buffer into a device buffer,
-    ``process_signal_packed`` on them with the engine's packed-state buffer
-    (K1 and K4 with the bucket's VAD order, the pack and ``pack_state``),
-    the copy of the new state into that buffer, and the readback of the
-    packed block into pinned host memory. A block then costs one copy of its
-    samples into the staging buffer and one replay. The first block of each
-    size runs eagerly, which caches what a first call builds on the host;
-    the graphs of that size are captured after it (:meth:`capture`).
-
-    Two slots alternate, each with its own staging and readback memory, its
-    event and its graph of each size: the engine keeps at most one block in
-    flight, so a slot's block is published before the slot's next replay
-    rewrites its readback memory. The graphs of one engine share one memory
-    pool: they run one at a time on the engine's stream, and nothing they
-    allocate outlives a replay."""
-
-    SLOTS = 2
-
-    def __init__(self, pipeline: FeaturePipeline, state: torch.Tensor,
-                 stream, max_frames: int):
-        c = pipeline.cfg
-        self.pipeline, self.state, self.stream = pipeline, state, stream
-        self.pool = torch.cuda.graph_pool_handle()
-        samples = (max_frames - 1) * c.hop_size + c.frame_size
-        cols = pipeline.PACKED_PREFIX_COLS + c.num_ceps
-        self.staging = [torch.empty(samples, dtype=torch.int16, pin_memory=True)
-                        for _ in range(self.SLOTS)]
-        self._staging_np = [t.numpy() for t in self.staging]
-        self.host = [torch.empty((max_frames, cols), pin_memory=True)
-                     for _ in range(self.SLOTS)]
-        self.done = [torch.cuda.Event() for _ in range(self.SLOTS)]
-        # (n, slot) -> (graph, the launches its capture counted)
-        self.graphs: dict[tuple[int, int], tuple] = {}
-        self.slot = 0
-
-    def ready(self, n: int) -> bool:
-        return (n, 0) in self.graphs
-
-    def capture(self, n: int, route_frames: int) -> None:
-        """Capture the graphs of ``n``-frame blocks, one a slot, on the
-        engine's stream (the caller's current stream), after that stream's
-        work is done. Other engines capture and dispatch in their own
-        threads meanwhile: the capture's error mode is thread-local."""
-        c = self.pipeline.cfg
-        length = (n - 1) * c.hop_size + c.frame_size
-        self.stream.synchronize()
-        for slot in range(self.SLOTS):
-            graph = torch.cuda.CUDAGraph()
-            with _collector_paused(), _build.recording() as launches:
-                graph.capture_begin(pool=self.pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    x = torch.empty(length, dtype=torch.int16,
-                                    device=self.state.device)
-                    x.copy_(self.staging[slot][:length], non_blocking=True)
-                    out, new = self.pipeline.process_signal_packed(
-                        x, self.state, length, route_frames=route_frames)
-                    _write_state(self.state, new)
-                    self.host[slot][:n].copy_(out, non_blocking=True)
-                finally:
-                    graph.capture_end()
-            self.graphs[n, slot] = graph, tuple(launches)
-
-    def replay(self, samples: np.ndarray, n: int):
-        """Run an ``n``-frame block of int16 samples through its graph.
-        Returns ``(host block, event)``, the event recorded after the
-        replay; each replay counts the launches its capture counted."""
-        slot = self.slot
-        self.slot = (slot + 1) % self.SLOTS
-        graph, launches = self.graphs[n, slot]
-        done = self.done[slot]
-        done.synchronize()  # the slot's last replay has read its staging
-        self._staging_np[slot][: len(samples)] = samples
-        graph.replay()
-        done.record(self.stream)
-        for kernel, route in launches:
-            _build.count(kernel, route)
-        return self.host[slot][:n], done
+    def __init__(self, payload: tuple, dtype: torch.dtype, readback: tuple,
+                 device: torch.device):
+        pinned = device.type == "cuda"
+        self.staging = torch.empty(payload, dtype=dtype, pin_memory=pinned)
+        self.staged = self.staging.numpy()
+        self.input = torch.empty(payload, dtype=dtype, device=device)
+        self.readback = torch.empty(readback, pin_memory=pinned)
+        self.done = torch.cuda.Event() if pinned else None
 
 
 def _default_mic_source() -> PyAudioSource:
@@ -340,7 +289,7 @@ class AudioRuntime:
         # increment): soak harnesses log memory against it and measure the
         # effect of TPU_MIN_DISPATCH_INTERVAL coalescing.
         self.dispatch_count = 0
-        # Of those, the ones that replayed a CUDA graph (_BlockGraphs).
+        # Of those, the ones that replayed a CUDA graph (_capture).
         self.graph_replays = 0
         # Monotonic count of frames materialized to the host since
         # construction (unlike ``processed_data``, never trimmed) — lets
@@ -375,9 +324,14 @@ class AudioRuntime:
             getattr(Config, "TPU_STREAM_BUCKETS", (32, 256, 2048))
         )
         self._graph_frames = min(self._buckets[0], GRAPH_MAX_FRAMES)
-        self._graphs = (_BlockGraphs(self.pipeline, self._vad_state_packed,
-                                     self._stream, self._graph_frames)
-                        if self._stream is not None else None)
+        # (n, slot) -> (the CUDA graph of the body of n-frame blocks in that
+        # slot, the launches its capture counted); None where nothing
+        # replays. The graphs of one engine share one memory pool: they run
+        # one at a time on the engine's stream, and nothing they allocate
+        # outlives a replay.
+        self._graphs = {} if self._stream is not None else None
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if self._stream is not None else None)
         # Low-latency mode: no in-flight block (each dispatch is materialized
         # immediately) + the JAX engine's extra small bucket, which there
         # spares a near-real-time cadence (a handful of frames per capture
@@ -430,6 +384,28 @@ class AudioRuntime:
                 Config.TPU_MIN_DISPATCH_INTERVAL,
             )
             self._min_dispatch_interval = 0.0
+        # The mode's packed program, and the slots sized by the top bucket:
+        # the largest block dispatch_split sends.
+        top, c = self._buckets[-1], self.pipeline.cfg
+        if self._samples_dispatch:
+            payload = ((top - 1) * self.hop_size + self.frame_size,)
+            dtype = torch.int16
+            program = (self.pipeline.process_signal_packed_pitch
+                       if self._pitch_enabled
+                       else self.pipeline.process_signal_packed)
+        else:
+            payload, dtype = (top, self.frame_size), torch.float32
+            program = (self.pipeline.process_block_packed_pitch
+                       if self._pitch_enabled
+                       else self.pipeline.process_block_packed)
+        cols = (self.pipeline.PACKED_PREFIX_COLS + c.num_ceps
+                + 2 * self._pitch_enabled)
+        self._program = (functools.partial(
+            program, min_confidence=self._pitch_min_conf)
+            if self._pitch_enabled else program)
+        self._slots = [_Slot(payload, dtype, (top, cols), dev)
+                       for _ in range(SLOTS)]
+        self._slot = 0
 
     def _update_max_pending(self) -> None:
         """Backpressure bound on the capture backlog (samples). The reference
@@ -629,79 +605,83 @@ class AudioRuntime:
         # callers split blocks larger than the top bucket (_process_loop)
         return self._buckets[-1]
 
-    def _start_readback(self, out: torch.Tensor):
-        """Enqueue the copy of a packed block into pinned host memory behind
-        the block's work and record an event after it; returns
-        ``(host tensor, event)``. On the CPU the block is already host
-        memory and there is no event."""
-        if out.device.type != "cuda":
-            return out, None
-        with torch.cuda.device(out.device):
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-        return host, done
+    def _run(self, slot: _Slot, size: int, n: int, bucket: int) -> None:
+        """The body of every block, eager or captured, enqueued on the
+        current stream: the staged payload (``size`` samples or frames) into
+        the slot's device input, the mode's packed program on it with the
+        packed-state buffer (the VAD order of ``bucket``), the new state
+        into that buffer (it never leaves the device), and the ``n``-frame
+        packed block into the slot's readback rows."""
+        x = slot.input[:size]
+        x.copy_(slot.staging[:size], non_blocking=True)
+        out, new = self._program(x, self._vad_state_packed, size,
+                                 route_frames=bucket)
+        _write_state(self._vad_state_packed, new)
+        slot.readback[:n].copy_(out, non_blocking=True)
 
-    def _dispatch(self, frames: np.ndarray):
-        """Enqueue one packed device program on the block's own frames and
-        the readback of its block (non-blocking), on the engine's stream.
-        Packed I/O: frames + the packed-state buffer in, one packed block
-        out (the new state overwrites the buffer and never leaves the
-        device). The block's bucket, the shape the JAX engine pads it to,
-        sets only the VAD's summation order. Returns what
-        :meth:`_materialize` takes: ``(host block, event, frames, the
-        block's request id)``.
-        """
+    def _capture(self, n: int, size: int, bucket: int) -> None:
+        """Capture the body of ``n``-frame blocks, one graph a slot, on the
+        engine's stream (the caller's current stream), after that stream's
+        work is done. Other engines capture and dispatch in their own
+        threads meanwhile: the capture's error mode is thread-local."""
+        self._stream.synchronize()
+        for k, slot in enumerate(self._slots):
+            graph = torch.cuda.CUDAGraph()
+            with _collector_paused(), _build.recording() as launches:
+                graph.capture_begin(pool=self._graph_pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    self._run(slot, size, n, bucket)
+                finally:
+                    graph.capture_end()
+            self._graphs[n, k] = graph, tuple(launches)
+
+    def _replay(self, n: int, k: int) -> None:
+        """Replay the graph of ``n``-frame blocks in slot ``k``; each replay
+        counts the launches its capture counted."""
+        graph, launches = self._graphs[n, k]
+        graph.replay()
+        for kernel, route in launches:
+            _build.count(kernel, route)
+
+    def _dispatch(self, payload: np.ndarray, n: int):
+        """Enqueue one block of ``n`` frames (its int16 samples, or its
+        frame matrix in the frames dispatch) through the next slot on the
+        engine's stream: wait until the slot's last block has left it,
+        stage the payload, run the body (:meth:`_run`) or replay its graph,
+        and record the slot's event. The block's bucket, the shape the JAX
+        engine pads it to, sets only the VAD's summation order. A block that
+        takes the graph route (:func:`_replays`) replays the graph of its
+        size once one block of that size has run eagerly and the graphs are
+        captured. Returns what :meth:`_materialize` takes: ``(host block,
+        event, frames, the block's request id)``."""
         with (span("sspv.engine.dispatch") as req,
               torch.cuda.stream(self._stream)):
-            n = frames.shape[0]
-            bucket = self._bucket_for(n)
-            if self._pitch_enabled:
-                out, new = self.pipeline.process_block_packed_pitch(
-                    frames, self._vad_state_packed, n, self._pitch_min_conf,
-                    route_frames=bucket)
-            else:
-                out, new = self.pipeline.process_block_packed(
-                    frames, self._vad_state_packed, n, route_frames=bucket)
-            _write_state(self._vad_state_packed, new)
-            self.dispatch_count += 1
-            return (*self._start_readback(out), n, req)
-
-    def _dispatch_samples(self, samples: np.ndarray):
-        """Enqueue one packed device program on an int16 sample block of
-        whole frames and its readback (non-blocking), with the VAD order of
-        the block's bucket (in frames, the same ``TPU_STREAM_BUCKETS`` set
-        as the frames layout), as :meth:`_dispatch`. A block that takes the
-        graph route (:func:`_replays`) replays the graph of its size, once
-        one block of that size has run eagerly and the graphs are captured
-        (:class:`_BlockGraphs`)."""
-        with (span("sspv.engine.dispatch") as req,
-              torch.cuda.stream(self._stream)):
-            n = 1 + (len(samples) - self.frame_size) // self.hop_size
-            bucket = self._bucket_for(n)
+            k, self._slot = self._slot, (self._slot + 1) % SLOTS
+            slot, size, bucket = self._slots[k], len(payload), self._bucket_for(n)
             graphed = self._graphs is not None and _replays(
                 self.pipeline.device, self._samples_dispatch,
                 self._pitch_enabled, n, self._graph_frames)
-            if graphed and self._graphs.ready(n):
-                with span("sspv.engine.replay"):
-                    host, done = self._graphs.replay(samples, n)
-                self.graph_replays += 1
-            else:
-                if self._pitch_enabled:
-                    out, new = self.pipeline.process_signal_packed_pitch(
-                        samples, self._vad_state_packed, len(samples),
-                        self._pitch_min_conf, route_frames=bucket)
+            replay = graphed and (n, 0) in self._graphs
+            with (span("sspv.engine.replay") if replay
+                  else contextlib.nullcontext()):
+                if slot.done is not None:
+                    slot.done.synchronize()
+                slot.staged[:size] = payload
+                if replay:
+                    self._replay(n, k)
                 else:
-                    out, new = self.pipeline.process_signal_packed(
-                        samples, self._vad_state_packed, len(samples),
-                        route_frames=bucket)
-                _write_state(self._vad_state_packed, new)
-                host, done = self._start_readback(out)
-                if graphed:
-                    self._graphs.capture(n, bucket)
+                    self._run(slot, size, n, bucket)
+                if slot.done is not None:
+                    slot.done.record(
+                        self._stream if self._stream is not None
+                        else torch.cuda.current_stream(self.pipeline.device))
+            if replay:
+                self.graph_replays += 1
+            elif graphed:
+                self._capture(n, size, bucket)
             self.dispatch_count += 1
-            return host, done, n, req
+            return slot.readback[:n], slot.done, n, req
 
     def _materialize(self, inflight) -> None:
         """Wait for one dispatched block's readback (its event) and publish
@@ -784,11 +764,9 @@ class AudioRuntime:
             consecutive slices share the frame-overlap samples."""
             for lo in range(0, n, max_bucket):
                 hi = min(n, lo + max_bucket)
-                if self._samples_dispatch:
-                    part = payload[lo * hop : (hi - 1) * hop + frame]
-                    nxt = self._dispatch_samples(part)
-                else:
-                    nxt = self._dispatch(payload[lo:hi])
+                part = (payload[lo * hop : (hi - 1) * hop + frame]
+                        if self._samples_dispatch else payload[lo:hi])
+                nxt = self._dispatch(part, hi - lo)
                 if inflight is not None:
                     self._materialize(inflight)
                 if self._low_latency:

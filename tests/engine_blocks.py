@@ -1,6 +1,6 @@
-"""One stream's blocks through the engine's samples dispatch and through a
-chain of eager ``process_signal_packed`` calls, for the tests that hold
-the engine's graph route to the eager one, on the CPU and on the card
+"""One stream's blocks through the engine's dispatch and through a chain
+of eager packed-program calls, for the tests that hold the engine's graph
+route and its slots to the eager calls, on the CPU and on the card
 (``test_torch_engine.py``, ``test_torch_cuda.py``). Imports no JAX.
 
 Everything is compared as raw bits (int32 views of the float32 packed
@@ -9,6 +9,8 @@ blocks and states).
 
 import numpy as np
 import torch
+
+from sspv_tpu_torch.utils.framing import frame_i16_to_f32
 
 FRAME, HOP, SR = 320, 160, 16000
 BUCKETS = (32, 256, 2048)  # the default TPU_STREAM_BUCKETS
@@ -43,11 +45,17 @@ def bits(t) -> np.ndarray:
     return np.ascontiguousarray(a).view(np.int32).copy()
 
 
-def eager_chain(pipe, sig: np.ndarray, sizes=SIZES, reset_at=RESET_AT):
+def eager_chain(pipe, sig: np.ndarray, sizes=SIZES, reset_at=RESET_AT,
+                frames: bool = False, min_conf: float | None = None):
     """Each block's packed block and the final packed state (bits) of a
-    chain of ``process_signal_packed`` calls, each with its bucket's VAD
-    order, the state carried, and at ``reset_at`` the reset of
-    ``set_audio_source`` (a fresh state that keeps last_voiced's bits)."""
+    chain of ``process_signal_packed`` calls (with ``frames``,
+    ``process_block_packed`` on the host-framed block; with ``min_conf``,
+    their pitch programs), each with its bucket's VAD order, the state
+    carried, and at ``reset_at`` the reset of ``set_audio_source`` (a fresh
+    state that keeps last_voiced's bits)."""
+    name = "process_block_packed" if frames else "process_signal_packed"
+    pitch = () if min_conf is None else (min_conf,)
+    program = getattr(pipe, name + ("_pitch" if pitch else ""))
     state = torch.from_numpy(pipe.initial_packed_state()).to(pipe.device)
     outs = []
     for k, block in enumerate(blocks(sig, sizes)):
@@ -56,17 +64,18 @@ def eager_chain(pipe, sig: np.ndarray, sizes=SIZES, reset_at=RESET_AT):
             fresh.view(np.int32)[-1] = bits(state)[-1]
             state = torch.from_numpy(fresh).to(pipe.device)
         n = 1 + (len(block) - FRAME) // HOP
-        out, state = pipe.process_signal_packed(
-            block, state, len(block),
-            route_frames=next(b for b in BUCKETS if n <= b))
+        payload = frame_i16_to_f32(block, FRAME, HOP) if frames else block
+        out, state = program(payload, state, len(payload), *pitch,
+                             route_frames=next(b for b in BUCKETS if n <= b))
         outs.append(bits(out))
     return outs, bits(state)
 
 
 def engine_run(rt, sig: np.ndarray, sizes=SIZES, reset_at=RESET_AT):
-    """The same blocks through ``rt``'s samples dispatch, one block in
-    flight as its processing loop keeps them, with ``set_audio_source`` at
-    ``reset_at``: each published packed block and the final state (bits)."""
+    """The same blocks through ``rt``'s dispatch (the frames dispatch takes
+    them framed on the host), one block in flight as its processing loop
+    keeps them, with ``set_audio_source`` at ``reset_at``: each published
+    packed block and the final state (bits)."""
     published = []
     publish = rt._publish
 
@@ -82,7 +91,9 @@ def engine_run(rt, sig: np.ndarray, sizes=SIZES, reset_at=RESET_AT):
                 rt._materialize(inflight)
                 inflight = None
             rt.set_audio_source(rt.audio_source)
-        nxt = rt._dispatch_samples(block)
+        n = 1 + (len(block) - FRAME) // HOP
+        nxt = rt._dispatch(block if rt._samples_dispatch
+                           else frame_i16_to_f32(block, FRAME, HOP), n)
         if inflight is not None:
             rt._materialize(inflight)
         inflight = nxt

@@ -461,6 +461,42 @@ def test_cpu_engine_replays_nothing(both_configs):
     assert [d["mfcc"] for d in rows] == tail[:, 5:].tolist()
 
 
+@pytest.mark.parametrize("pitch", [0, 1])
+@pytest.mark.parametrize("samples_dispatch", [1, 0])
+def test_engine_hands_the_pipeline_device_tensors(both_configs, monkeypatch,
+                                                  samples_dispatch, pitch):
+    """Every dispatch of an engine, in either mode, with pitch off and on,
+    over graphed sizes, a 40-frame block and a source reset, reaches the
+    pipeline's upload with tensors already on its device and never a host
+    array (that branch serves the offline programs); the published blocks
+    and the state equal a chain of eager calls bit for bit."""
+    both_configs("TPU_STREAM_SAMPLES_DISPATCH", samples_dispatch)
+    both_configs("TPU_ENGINE_PITCH", pitch)
+    pipe = FeaturePipeline(device="cpu")
+    sig = engine_blocks.signal(seed=4)
+    rt = TRuntime(audio_source=DummyAudioSource(sig), pipeline=pipe,
+                  device="cpu")
+    assert rt._samples_dispatch == bool(samples_dispatch)
+    want, want_state = engine_blocks.eager_chain(
+        pipe, sig, frames=not samples_dispatch,
+        min_conf=rt._pitch_min_conf if pitch else None)
+    seen = []
+    upload = FeaturePipeline._upload
+
+    def spy(self, a):
+        seen.append((type(a), getattr(a, "device", None)))
+        return upload(self, a)
+
+    monkeypatch.setattr(FeaturePipeline, "_upload", spy)
+    got, got_state = engine_blocks.engine_run(rt, sig)
+    assert len(seen) >= len(engine_blocks.SIZES)
+    assert set(seen) == {(torch.Tensor, pipe.device)}, set(seen)
+    assert len(got) == len(want) == len(engine_blocks.SIZES)
+    for k, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g, w, err_msg=f"block {k}")
+    np.testing.assert_array_equal(got_state, want_state)
+
+
 # int32 last_voiced values whose float32 bits are NaN patterns (signaling
 # and quiet, both signs), and an ordinary one
 NAN_PATTERNS = [0x7F800001, 0x7FA00000, -8388607, -4, 57]

@@ -261,15 +261,17 @@ def test_engine_dispatches_at_exact_length(pipes, monkeypatch,
     from sspv_tpu_torch.utils.framing import frame_i16_to_f32
 
     monkeypatch.setattr(Config, "PROCESSED_DATA_BUFFER_SIZE", 100_000)
+    monkeypatch.setattr(Config, "TPU_STREAM_SAMPLES_DISPATCH",
+                        int(samples_dispatch))
     jp, tp = pipes
     sig = speech(samples_of(sum(STREAM_BLOCKS)), seed=7)
     rt = AudioRuntime(audio_source=object(), pipeline=tp, device="cpu")
-    rt._samples_dispatch = samples_dispatch
+    assert rt._samples_dispatch == samples_dispatch
     start = 0
     for m in STREAM_BLOCKS:
         block = sig[start * 160 : (start + m - 1) * 160 + 320]
-        out = (rt._dispatch_samples(block) if samples_dispatch
-               else rt._dispatch(frame_i16_to_f32(block, 320, 160)))
+        out = rt._dispatch(block if samples_dispatch
+                           else frame_i16_to_f32(block, 320, 160), m)
         assert out[0].shape[0] == m  # the packed block: no padded rows
         rt._materialize(out)
         start += m
