@@ -176,8 +176,7 @@ class BatchPipeline:
         Returns ``(FeatureBlock, VadState)`` with a leading ``(B,)`` axis,
         on the mesh's first device."""
         with span("sspv.mesh.process_batch"):
-            block, states, _ = self._rows(signals, None, states, None)
-            return block, states
+            return self._rows(signals, None, states, None)
 
     def process_batch_masked(self, signals, lengths,
                              states: vad_ops.VadState | None = None, *,
@@ -193,9 +192,8 @@ class BatchPipeline:
         on the resampled rows, ``(B, resample_output_len(L, up, down))``
         with lengths ``resample_output_len(lengths[i], up, down)``."""
         with span("sspv.mesh.process_batch_masked"):
-            block, states, _ = self._rows(signals, lengths, states, None,
-                                          ratio=self._ratio(source_rate))
-            return block, states
+            return self._rows(signals, lengths, states, None,
+                              ratio=self._ratio(source_rate))
 
     def process_batch_masked_pitch(self, signals, lengths,
                                    states: vad_ops.VadState | None = None,
@@ -209,13 +207,9 @@ class BatchPipeline:
         ``(vad > 0) & (conf >= min_confidence)``) on the VAD masked to each
         row's true frames, as the two-call construction gates it."""
         with span("sspv.mesh.process_batch_masked_pitch"):
-            ratio = self._ratio(source_rate)
-            block, states, (f0, conf) = self._rows(
-                signals, lengths, states, (fmin, fmax), ratio=ratio
-            )
-            return (block, states, *self._gated_pitch(
-                block, self._out_lengths(lengths, ratio), f0, conf,
-                min_confidence))
+            return self._rows(signals, lengths, states, (fmin, fmax),
+                              ratio=self._ratio(source_rate),
+                              min_confidence=min_confidence)
 
     def _ratio(self, source_rate) -> tuple[int, int] | None:
         """``(up, down)`` from ``source_rate`` to the configuration's rate,
@@ -234,16 +228,18 @@ class BatchPipeline:
         up, down = ratio
         return -(-np.asarray(lengths, np.int64) * up // down)
 
-    def _gated_pitch(self, block, lengths, f0, conf, min_confidence: float):
+    @staticmethod
+    def _gated_pitch(block, n, f0, conf, min_confidence: float):
         """The batch programs' pitch gate: ``(vad > 0) & (conf >=
-        min_confidence)``, and frames past each row's true length off.
-        Returns ``(f0, conf)``."""
+        min_confidence)``, and frames past each row's true frame count
+        ``n`` (int32 ``(B,)`` on the block's device, or None) off. Returns
+        ``(f0, conf)``."""
         with span("sspv.mesh.gate"):
             mc = float(np.float32(min_confidence))
             gate = (block.vad > 0) & (conf >= mc)
-            if lengths is not None:
-                gate &= self._valid(lengths, block.vad.shape[1],
-                                    block.vad.device)
+            if n is not None:
+                gate &= torch.arange(block.vad.shape[1],
+                                     device=n.device)[None, :] < n[:, None]
             return torch.where(gate, f0, torch.zeros_like(f0)), conf
 
     def _exact_batch(self, signals, lengths, route_frames: int,
@@ -261,14 +257,10 @@ class BatchPipeline:
         :meth:`process_batch_masked`; ``route_frames`` counts frames at the
         configuration's rate."""
         with span("sspv.mesh.exact_batch"):
-            ratio = self._ratio(source_rate)
-            block, _, pitch = self._rows(signals, lengths, None, band,
-                                         route_frames, exact=True, ratio=ratio)
-            if band is None:
-                return block, None, None
-            return (block, *self._gated_pitch(
-                block, self._out_lengths(lengths, ratio), *pitch,
-                min_confidence))
+            block, _, *pitch = self._rows(
+                signals, lengths, None, band, route_frames, exact=True,
+                ratio=self._ratio(source_rate), min_confidence=min_confidence)
+            return block, *(pitch or (None, None))
 
     def _true_n(self, lengths) -> np.ndarray:
         c = self.pipe.cfg
@@ -276,23 +268,25 @@ class BatchPipeline:
         return np.where(lens >= c.frame_size,
                         1 + (lens - c.frame_size) // c.hop_size, 0)
 
-    def _valid(self, lengths, f: int, device) -> torch.Tensor:
-        true_n = torch.as_tensor(self._true_n(lengths), device=device)
-        return torch.arange(f, device=device)[None, :] < true_n[:, None]
-
     def _rows(self, signals, lengths, states, band, route_frames=None,
-              exact: bool = False, ratio: tuple[int, int] | None = None):
+              exact: bool = False, ratio: tuple[int, int] | None = None,
+              min_confidence: float = 0.3):
         """The batch programs' body: rows over "data", one K3 launch per
         device over its rows' frames, one VAD call per device over its rows
         (each row with its own state and length: the ``vmap``ped
         ``_masked_row`` of the JAX package; the window sums in the order of
         ``route_frames`` frames, default the batch's), and with ``band =
-        (fmin, fmax)`` the ungated pitch of every row. ``exact``: only each
-        row's true frames run through K3 and K2 (``_exact_batch``).
-        ``ratio``: ``(up, down)`` (``_ratio``), the int16 rows resampled by it
-        on each device first, ``lengths`` their lengths before it. Returns
-        ``(block, states, (f0, conf) or None)`` on the mesh's first
-        device."""
+        (fmin, fmax)`` the pitch of every row, gated (:meth:`_gated_pitch`).
+        ``exact``: only each row's true frames run through K3 and K2
+        (``_exact_batch``). ``ratio``: ``(up, down)`` (``_ratio``), the int16
+        rows resampled by it on each device first, ``lengths`` their lengths
+        before it. Returns ``(block, states)``, with a band ``(block,
+        states, f0, conf)``, on the mesh's first device.
+
+        Every device's rows, states and row lengths go to it before the
+        call's first kernel: a pageable upload syncs its stream, and after a
+        kernel it would wait for that kernel. After that nothing in the call
+        waits for the card."""
         sig = _as_transfer_dtype(signals)
         if sig.ndim != 2:
             raise ValueError(f"signals must be (B, L), got {tuple(sig.shape)}")
@@ -320,46 +314,48 @@ class BatchPipeline:
         true_n = None if lengths is None else self._true_n(lengths)
         all_states = self.initial_states(b) if states is None else states
         dev0, per = self.pipe.device, b // dp
-        blocks, new_states, pitch = [], [], []
-        for i in range(dp):
-            pipe = self._pipes[self.mesh.devices[i, 0]]
-            rows = slice(i * per, (i + 1) * per)
-            own = None  # with exact: each row's frame count
-            n = None  # each row's frame count on the device, K4's lengths
-            with span("sspv.mesh.rows.frame"):
+        # each row's frame count (K4's lengths), and at a source rate its
+        # source length (K5's)
+        counts = [] if true_n is None else [true_n] if ratio is None \
+            else [true_n, src_lengths]
+        with span("sspv.mesh.rows.frame"):
+            staged = []
+            for i in range(dp):
+                pipe = self._pipes[self.mesh.devices[i, 0]]
+                rows = slice(i * per, (i + 1) * per)
                 x = pipe._upload(sig[rows])
+                st = _on(vad_ops.VadState(*(t[rows] for t in all_states)),
+                         pipe.device)
+                n = self._lengths(pipe, [a[rows] for a in counts]) \
+                    if counts else None
+                staged.append((pipe, rows, x, st, n))
+            framed = []
+            for pipe, rows, x, st, n in staged:
                 if ratio is not None:
                     with span("sspv.mesh.resample"):
-                        # K4's frame counts and K5's source lengths in one
-                        # pageable upload, made while the stream is empty: it
-                        # syncs the stream, and after K3 it would wait for K3
-                        counts = torch.from_numpy(np.concatenate(
-                            [true_n[rows], src_lengths[rows]]).astype(
-                                np.int32)).to(pipe.device)
-                        n = counts[:per]
-                        x = resample_rows_int16(x, counts[per:], *ratio)
+                        x = resample_rows_int16(x, n[per:], *ratio)
                 x = x.to(torch.float32)
+                own = None  # with exact: each row's frame count
                 if exact and f:
-                    own = [int(n) for n in true_n[rows]]
+                    own = [int(k) for k in true_n[rows]]
                     windows = x.unfold(1, c.frame_size, c.hop_size)
-                    frames = torch.cat([windows[r, :n]
-                                        for r, n in enumerate(own)])
+                    frames = torch.cat([windows[r, :k]
+                                        for r, k in enumerate(own)])
                 elif f:
                     frames = (x.unfold(1, c.frame_size, c.hop_size)
                               .reshape(-1, c.frame_size))
                 else:
                     frames = x.new_zeros((0, c.frame_size))
+                framed.append((pipe, x, frames, own, st,
+                               None if n is None else n[:per]))
+        blocks, new_states, pitch = [], [], []
+        for pipe, x, frames, own, st, n in framed:
             feats = pipe._features(frames)  # one K3 launch for all rows
             feats = {k: self._per_row(v, per, f, own)
                      for k, v in feats.items()}
-            if true_n is not None and n is None:
-                n = torch.from_numpy(true_n[rows].astype(np.int32)).to(
-                    pipe.device)
             # one VAD call over all rows (K4 on CUDA), each with its state
-            block, st = pipe._vad_stage(
-                feats, _on(vad_ops.VadState(*(t[rows] for t in all_states)),
-                           pipe.device), None, lengths=n,
-                route_frames=route_frames)
+            block, st = pipe._vad_stage(feats, st, None, lengths=n,
+                                        route_frames=route_frames)
             blocks.append(FeatureBlock(*(t.to(dev0) for t in block)))
             new_states.append(_on(st, dev0))
             if band is not None:
@@ -368,10 +364,22 @@ class BatchPipeline:
         with span("sspv.mesh.rows.collect"):
             block = FeatureBlock(*(torch.cat(ts) for ts in zip(*blocks)))
             new = vad_ops.VadState(*(torch.cat(ts) for ts in zip(*new_states)))
-            out_pitch = None
-            if band is not None:
-                out_pitch = tuple(torch.cat(ts) for ts in zip(*pitch))
-        return block, new, out_pitch
+            if band is None:
+                return block, new
+            f0, conf = (torch.cat(ts) for ts in zip(*pitch))
+            # the rows' frame counts, from the devices' own copies
+            n = None if true_n is None else torch.cat(
+                [k.to(dev0) for *_, k in framed])
+        return (block, new, *self._gated_pitch(block, n, f0, conf,
+                                               min_confidence))
+
+    @staticmethod
+    def _lengths(pipe, counts: list) -> torch.Tensor:
+        """``counts`` (host integer arrays) one after another as int32 on
+        ``pipe``'s device, in one pageable upload."""
+        with span("sspv.mesh.lengths"):
+            return torch.from_numpy(np.concatenate(counts).astype(
+                np.int32)).to(pipe.device)
 
     @staticmethod
     def _per_row(v: torch.Tensor, per: int, f: int, own) -> torch.Tensor:

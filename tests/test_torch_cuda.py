@@ -815,6 +815,66 @@ def test_batch_program_resamples_on_the_card():
                 assert torch.equal(a, b) and torch.equal(a, c), name
 
 
+@pytest.mark.cuda
+def test_batch_calls_do_not_wait_for_the_card_after_k3(monkeypatch):
+    """The batch programs on Whisper's geometry with short rows: once the
+    K3 wrapper returns, nothing in the call synchronises with the card
+    (``torch.cuda.set_sync_debug_mode("error")`` from there to the call's
+    end raises on any synchronising call, a pageable upload among them),
+    and each call's outputs equal those of the same call with the mode
+    off, which runs first and fills the pipelines' caches."""
+    from sspv_tpu_torch.ops import pipeline as pipeline_mod
+    from sspv_tpu_torch.parallel import BatchPipeline, make_mesh
+
+    dev = _device("cuda")
+    cfg = FeatureConfig(frame_size=400, hop_size=160, n_fft=400,
+                        entropy_n_fft=400, num_filters=80, window_type="hann")
+    bp = BatchPipeline(make_mesh(1), cfg)
+    x48, n48 = _k5_rows(48000, 11)
+    x16, n16 = _k5_rows(16000, 12)
+    calls = {
+        "masked_16k": lambda: bp.process_batch_masked(x16, n16),
+        "masked_48k": lambda: bp.process_batch_masked(x48, n48,
+                                                      source_rate=48000),
+        "pitch_16k": lambda: bp.process_batch_masked_pitch(x16, n16),
+        "exact_band_16k": lambda: bp._exact_batch(x16, n16, 512,
+                                                  (50.0, 400.0)),
+    }
+    k3 = pipeline_mod.fused_features
+    strict = {"on": False}
+
+    def k3_then_strict(*args, **kw):
+        out = k3(*args, **kw)
+        if strict["on"]:
+            torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    monkeypatch.setattr(pipeline_mod, "fused_features", k3_then_strict)
+    torch.cuda.set_sync_debug_mode("error")
+    try:  # the mode catches the upload the programs used to make after K3
+        with pytest.raises(RuntimeError):
+            torch.from_numpy(np.arange(4, dtype=np.int32)).to(dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name, call in calls.items():
+        want = call()
+        torch.cuda.synchronize()
+        before = vk.LAUNCHES["frame_features"]
+        strict["on"] = True
+        try:
+            got = call()
+        finally:
+            strict["on"] = False
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        assert vk.LAUNCHES["frame_features"] == before + 1, name
+        flat = lambda out: [t for part in out for t in (  # noqa: E731
+            part if isinstance(part, tuple) else (part,))]
+        assert len(flat(got)) == len(flat(want)), name
+        for a, b in zip(flat(got), flat(want)):
+            assert torch.equal(a, b), name
+
+
 # -- the L1 ops, the facade, the frontend modules and the resampler ---------
 #
 # Each on the card against itself on the CPU. Gates: framing, pre-emphasis,

@@ -293,6 +293,7 @@ def test_process_batch_masked_records_its_stages():
     inside, _ = _names_inside("sspv.mesh.process_batch_masked")
     assert inside == {
         "sspv.mesh.rows.frame": 1, "sspv.pipeline.upload": 1,
+        "sspv.mesh.lengths": 1,
         "sspv.k3.frame_features": 1, "sspv.mesh.rows.per_row": 4,
         "sspv.k4.vad": 1, "sspv.mesh.rows.collect": 1}
 
@@ -302,7 +303,8 @@ def test_process_batch_masked_records_the_resample(rate):
     """At a source rate the call records ``sspv.mesh.resample`` and, inside
     it, the wrapper's ``sspv.k5.resample``, once a device, both under
     ``sspv.mesh.process_batch_masked``; at none or the configuration's
-    own, neither."""
+    own, neither. The rows' lengths go up under ``sspv.mesh.lengths`` at
+    every rate, outside the resample."""
     cfg = FeatureConfig(frame_size=400, hop_size=160, n_fft=400,
                         entropy_n_fft=400, num_filters=80,
                         window_type="hann")
@@ -314,6 +316,7 @@ def test_process_batch_masked_records_the_resample(rate):
                                 source_rate=rate)
     inside, _ = _names_inside("sspv.mesh.process_batch_masked")
     want = {"sspv.mesh.rows.frame": 1, "sspv.pipeline.upload": 1,
+            "sspv.mesh.lengths": 1,
             "sspv.k3.frame_features": 1, "sspv.mesh.rows.per_row": 4,
             "sspv.k4.vad": 1, "sspv.mesh.rows.collect": 1}
     if rate == 48000:
@@ -326,6 +329,47 @@ def test_process_batch_masked_records_the_resample(rate):
             assert by_index[r.parent].name == "sspv.mesh.resample"
         if r.name == "sspv.mesh.resample":
             assert by_index[r.parent].name == "sspv.mesh.rows.frame"
+
+
+BATCH_CALLS = {
+    "batch": lambda bp, x, n: bp.process_batch(x),
+    "masked": lambda bp, x, n: bp.process_batch_masked(x, n),
+    "masked_48k": lambda bp, x, n: bp.process_batch_masked(
+        x, n, source_rate=48000),
+    "pitch": lambda bp, x, n: bp.process_batch_masked_pitch(x, n),
+    "exact_band": lambda bp, x, n: bp._exact_batch(x, n, 512, (50.0, 400.0)),
+}
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("call", list(BATCH_CALLS))
+def test_batch_calls_upload_lengths_before_the_first_kernel(call, d):
+    """Each batch call with lengths uploads them once per "data" device,
+    under ``sspv.mesh.lengths``, and every such upload (and every upload of
+    the rows) ends before the call's first kernel wrapper (K5, K3) starts
+    on any device: after that nothing in the call waits for the card.
+    ``process_batch`` has no lengths and uploads none."""
+    bp = BatchPipeline(make_mesh(d, device="cpu"))
+    assert bp.mesh.devices.shape[0] == d
+    scale = 3 if call == "masked_48k" else 1
+    x = np.stack([speech(0.5 * scale, seed) for seed in range(4)])
+    n = [x.shape[1], x.shape[1] // 2, 301 * scale, 0]
+    with profile(activities=[ProfilerActivity.CPU]):
+        BATCH_CALLS[call](bp, x, n)
+    records, _ = spans()
+    named = lambda name: [r for r in records if r.name == name]  # noqa: E731
+    lengths = named("sspv.mesh.lengths")
+    uploads = named("sspv.pipeline.upload")
+    kernels = named("sspv.k3.frame_features") + named("sspv.k5.resample")
+    assert len(lengths) == (0 if call == "batch" else d)
+    assert len(uploads) == d
+    assert len(named("sspv.k3.frame_features")) == d
+    assert len(named("sspv.k5.resample")) == (d if call == "masked_48k" else 0)
+    first_kernel = min(r.start_ns for r in kernels)
+    assert all(r.end_ns <= first_kernel for r in lengths + uploads)
+    by_index = {r.index: r for r in records}
+    assert all(by_index[r.parent].name == "sspv.mesh.rows.frame"
+               for r in lengths)
 
 
 def test_the_engine_records_take_dispatch_and_publish(tmp_path):
